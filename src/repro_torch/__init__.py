@@ -1,0 +1,15 @@
+"""repro_torch — the H-matrix pipeline in PyTorch, with hand-written CUDA kernels.
+
+A port of ``repro`` (JAX + Pallas) to PyTorch on an NVIDIA Hopper card.
+The main path is the same as the reference's quickstart:
+
+    hm = build_hmatrix(pts, "gaussian", k=16, c_leaf=256, precompute=True)
+    z = make_apply(hm)(x)                     # Z = H X, x: (N,) or (N, R)
+    c, info = make_solver(hm, sigma2)(f)      # block-Jacobi PCG
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no device given and no CUDA card they raise ``RuntimeError``.  On a
+CUDA tensor every kernel wrapper launches its kernel (built from
+``csrc/`` with ``nvcc`` at first use); on a CPU tensor it runs the plain
+PyTorch version of the same function.
+"""

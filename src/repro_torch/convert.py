@@ -1,0 +1,57 @@
+"""Build a ``repro_torch`` HMatrix from plain NumPy arrays.
+
+The arrays are an export of an H-matrix built elsewhere (for instance by
+the JAX reference), so that both sides apply the SAME tree, plan and
+factors.  Keys of ``arrays`` (``{l}`` is a tree level):
+
+    points (n_pad, d) f32, perm (n,) int, n, n_pad, c_leaf, n_levels, eta,
+    k, kernel_name (str), bb_min/{l}, bb_max/{l} (2^l, d) f32 for every
+    level, dense_blocks (n_dense, 2) int32, aca_levels/{l} (B_l, 2) int32,
+    and, for a precomputed H-matrix, U/{l} (B_l, m, k), V/{l} (B_l, m, k) f32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.block_tree import HMatrixPlan
+from .core.clustering import ClusterTree
+from .core.factor_store import FactorStore
+from .core.geometry import get_kernel
+from .core.hmatrix import HMatrix, block_groups
+
+
+def _levels_of(arrays: dict, prefix: str) -> list[int]:
+    return sorted(int(key.split("/", 1)[1]) for key in arrays if key.startswith(prefix + "/"))
+
+
+def hmatrix_from_arrays(arrays: dict[str, np.ndarray], *, device) -> HMatrix:
+    """The port's :class:`HMatrix` for an exported H-matrix, on ``device``."""
+    dev = torch.device(device)
+
+    def f32(key):
+        return torch.from_numpy(np.array(arrays[key], np.float32)).to(dev)
+
+    n_levels = int(arrays["n_levels"])
+    tree = ClusterTree(
+        points=f32("points"),
+        perm=torch.from_numpy(np.array(arrays["perm"], np.int64)).to(dev),
+        n=int(arrays["n"]), n_pad=int(arrays["n_pad"]), c_leaf=int(arrays["c_leaf"]),
+        n_levels=n_levels,
+        bb_min=tuple(f32(f"bb_min/{lv}") for lv in range(n_levels + 1)),
+        bb_max=tuple(f32(f"bb_max/{lv}") for lv in range(n_levels + 1)))
+    plan = HMatrixPlan(
+        aca_levels={lv: np.asarray(arrays[f"aca_levels/{lv}"], np.int32)
+                    for lv in _levels_of(arrays, "aca_levels")},
+        dense_blocks=np.asarray(arrays["dense_blocks"], np.int32).reshape(-1, 2),
+        c_leaf=tree.c_leaf, n_pad=tree.n_pad, n_levels=n_levels,
+        eta=float(arrays["eta"]))
+    factors = None
+    if _levels_of(arrays, "U"):
+        factors = FactorStore.from_factors(
+            {lv: (f32(f"U/{lv}"), f32(f"V/{lv}")) for lv in _levels_of(arrays, "U")},
+            plan=plan)
+    kernel_name = str(arrays["kernel_name"])
+    return HMatrix(tree=tree, plan=plan, kernel=get_kernel(kernel_name),
+                   kernel_name=kernel_name, k=int(arrays["k"]), factors=factors,
+                   groups=block_groups(plan, dev))
