@@ -24,13 +24,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("dense_matmat", "lowrank_matmat", "block_cholesky", "block_cholesky_solve")
+SOURCES = ("dense_matmat", "lowrank_matmat", "block_cholesky", "block_cholesky_solve",
+           "aca", "morton")
 
 LAUNCHES: dict[str, int] = {
+    "batched_kernel_matvec": 0,
     "batched_kernel_matmat": 0,
+    "batched_aca": 0,
     "batched_lowrank_matmat": 0,
     "batched_block_cholesky": 0,
     "batched_block_cholesky_solve": 0,
+    "morton_encode": 0,
 }
 
 _LOCK = threading.Lock()

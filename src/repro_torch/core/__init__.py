@@ -9,6 +9,8 @@ Public API:
     FactorStore, effective_ranks                                (factor storage)
     build_hmatrix, make_apply, make_matvec, HMatrix,
     diagonal_blocks, dense_matvec_oracle                        (assembly + apply)
+    build_hmatrix_device, build_hmatrix_device_report,
+    BuildReport, compute_factors_device, eval_dense_leaves      (device build)
 """
 from .geometry import (dense_kernel_matrix, gaussian_kernel, get_kernel, halton,
                        matern_kernel, sinusoid_targets)
@@ -20,6 +22,8 @@ from .aca import batched_aca
 from .factor_store import FactorStore, effective_ranks
 from .hmatrix import (HMatrix, apply_in_tree_order, build_hmatrix, compute_factors,
                       dense_matvec_oracle, diagonal_blocks, make_apply, make_matvec)
+from .build_device import (BuildReport, build_hmatrix_device, build_hmatrix_device_report,
+                           compute_factors_device, eval_dense_leaves)
 
 __all__ = [
     "halton", "get_kernel", "dense_kernel_matrix", "gaussian_kernel",
@@ -33,4 +37,6 @@ __all__ = [
     "HMatrix", "build_hmatrix", "make_apply", "make_matvec",
     "dense_matvec_oracle", "compute_factors", "diagonal_blocks",
     "apply_in_tree_order",
+    "BuildReport", "build_hmatrix_device", "build_hmatrix_device_report",
+    "compute_factors_device", "eval_dense_leaves",
 ]

@@ -22,11 +22,13 @@ def _masked_argmax(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def batched_aca(row_pts: torch.Tensor, col_pts: torch.Tensor,
-                kernel: Callable, k: int):
+                kernel: Callable, k: int, return_pivots: bool = False):
     """Rank-``k`` cross approximation of B blocks ``kernel(row_pts[b], col_pts[b])``.
 
     row_pts: (B, m, d), col_pts: (B, n, d) -> U: (B, m, k), V: (B, n, k)
-    with ``A[b] ~= U[b] @ V[b].T``.
+    with ``A[b] ~= U[b] @ V[b].T``.  With ``return_pivots`` also the (B, k)
+    int64 row and column pivots: ``(U, V, rows, cols)``, step r of block b
+    having crossed row ``rows[b, r]`` and column ``cols[b, r]``.
     """
     bsz, m, _ = row_pts.shape
     n = col_pts.shape[1]
@@ -37,6 +39,8 @@ def batched_aca(row_pts: torch.Tensor, col_pts: torch.Tensor,
     col_mask = torch.ones((bsz, n), dtype=dtype, device=dev)
     j_r = torch.zeros((bsz,), dtype=torch.int64, device=dev)
     ar = torch.arange(bsz, device=dev)
+    piv_rows = torch.zeros((bsz, k), dtype=torch.int64, device=dev)
+    piv_cols = torch.zeros((bsz, k), dtype=torch.int64, device=dev)
     for r in range(k):
         # residual column j_r:  A[:, j_r] - U @ V[j_r]
         a_col = kernel(row_pts, col_pts[ar, j_r][:, None, :])[:, :, 0]
@@ -56,5 +60,7 @@ def batched_aca(row_pts: torch.Tensor, col_pts: torch.Tensor,
         V[:, :, r] = v_r
         row_mask[ar, i_r] = 0.0
         col_mask[ar, j_r] = 0.0
+        piv_rows[:, r] = i_r
+        piv_cols[:, r] = j_r
         j_r = _masked_argmax(v_r, col_mask)
-    return U, V
+    return (U, V, piv_rows, piv_cols) if return_pivots else (U, V)

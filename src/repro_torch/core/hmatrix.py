@@ -6,10 +6,12 @@ factors.  ``make_apply`` returns ``apply(X) = H X`` for ``x: (N,)`` or a
 panel ``X: (N, R)``:
 
   * for every admissible level group, the batched rank-k product
-    ``U (V^T X)`` (kernel ``batched_lowrank_matmat``);
+    ``U (V^T X)`` (kernel ``batched_lowrank_matmat``); without stored
+    factors (NP mode) the group's factors are first recomputed by the
+    batched ACA (kernel ``batched_aca``) in every apply;
   * for the inadmissible leaves, the batched on-the-fly dense product
-    ``phi(rows, cols) X`` (kernel ``batched_kernel_matmat``), the block
-    never stored.
+    ``phi(rows, cols) X`` (kernel ``batched_kernel_matmat``, or
+    ``batched_kernel_matvec`` for a single column), the block never stored.
 
 Block results are scattered back to their row clusters by a deterministic
 segment sum: a row cluster appears in several blocks of one group, and the
@@ -30,10 +32,6 @@ from .block_tree import HMatrixPlan, build_block_tree
 from .clustering import ClusterTree, build_cluster_tree, permute_from_tree, permute_to_tree
 from .factor_store import FactorStore
 from .geometry import get_kernel, kernel_name_of
-
-NP_MODE_ON_CUDA = ("NP mode (factors recomputed in every apply) needs the port of "
-                   "the batched ACA kernel batched_aca_t, which is the port's second "
-                   "slice; build with precompute=True on CUDA")
 
 
 @dataclass(frozen=True)
@@ -72,7 +70,14 @@ def block_group(blocks: np.ndarray, device) -> BlockGroup:
 
 
 def block_groups(plan: HMatrixPlan, device) -> dict:
-    """``BlockGroup`` per ACA level (int keys) and for the dense leaves ("dense")."""
+    """``BlockGroup`` per ACA level (int keys) and for the dense leaves ("dense").
+
+    Every cluster id is checked against its level here, once: the ACA
+    kernel reads clusters by id and reports a bad one only as NaN factors.
+    """
+    for lv, blocks in list(plan.aca_levels.items()) + [(plan.n_levels, plan.dense_blocks)]:
+        if blocks.size and (blocks.min() < 0 or blocks.max() >= 1 << lv):
+            raise ValueError(f"plan: cluster ids of level {lv} outside [0, 2^{lv})")
     groups = {lv: block_group(b, device) for lv, b in plan.aca_levels.items()}
     groups["dense"] = block_group(plan.dense_blocks, device)
     return groups
@@ -218,11 +223,19 @@ def _dense_apply_points(points: torch.Tensor, plan: HMatrixPlan, kernel: Callabl
     n_leaf = plan.n_pad // c
     pts = points.reshape(n_leaf, c, -1)
     x_blk = x_pad.reshape(n_leaf, c, r)[g.cols]                  # (B, c, R)
-    if use_kernels:
-        from ..kernels.batched_dense_matvec.ops import batched_kernel_matmat as matmat
-    else:       # stores the (B, c, c) blocks
-        from ..kernels.batched_dense_matvec.ref import batched_kernel_matmat_ref as matmat
-    y = matmat(pts[g.rows], pts[g.cols], x_blk, kernel_name_of(kernel))
+    # the plain versions store the (B, c, c) blocks
+    if r == 1:
+        if use_kernels:
+            from ..kernels.batched_dense_matvec.ops import batched_kernel_matvec as matvec
+        else:
+            from ..kernels.batched_dense_matvec.ref import batched_kernel_matvec_ref as matvec
+        y = matvec(pts[g.rows], pts[g.cols], x_blk[:, :, 0], kernel_name_of(kernel))[:, :, None]
+    else:
+        if use_kernels:
+            from ..kernels.batched_dense_matvec.ops import batched_kernel_matmat as matmat
+        else:
+            from ..kernels.batched_dense_matvec.ref import batched_kernel_matmat_ref as matmat
+        y = matmat(pts[g.rows], pts[g.cols], x_blk, kernel_name_of(kernel))
     return _scatter_rows(z_pad, y, g)
 
 
@@ -232,16 +245,21 @@ def apply_in_tree_order(tree: ClusterTree, plan: HMatrixPlan, kernel: Callable, 
     """``H @ x_pad`` on a TREE-ordered padded panel ``(n_pad, R)``.
 
     Shared by :func:`make_apply` (which adds the permutations) and the PCG
-    loop of ``repro_torch.solve``.  ``factors`` None is NP mode: the factors
-    are recomputed per apply (plain path, CPU only for now).
+    loop of ``repro_torch.solve``.  ``factors`` None is NP mode: every apply
+    recomputes each level group's factors, through the batched ACA kernel
+    with ``use_kernels`` (direct-difference entries, as the kernels compute
+    them) and through ``core.aca`` without (the kernel function ``kernel``,
+    as the P-mode build computes them).  A panel of one column sends the
+    dense leaves through the vector kernel.
     """
     z_pad = torch.zeros_like(x_pad)
     for level in plan.aca_levels:
         g = groups[level]
         if factors is not None:
             U, V = factors[level]
-        elif points.is_cuda:
-            raise NotImplementedError(NP_MODE_ON_CUDA)
+        elif use_kernels:
+            from ..kernels.batched_aca.ops import batched_aca_level
+            U, V = batched_aca_level(points, g.rows, g.cols, level, kernel_name_of(kernel), k)
         else:
             U, V = batched_aca(_cluster_points(points, level, g.rows),
                                _cluster_points(points, level, g.cols), kernel, k)
@@ -263,8 +281,6 @@ def make_apply(hm: HMatrix, use_kernels: bool = True, mesh=None) -> Callable:
         raise NotImplementedError("mesh= (multi-GPU apply) is not ported yet; it comes "
                                   "with the multi-GPU slice of the port")
     tree, plan = hm.tree, hm.plan
-    if hm.factors is None and hm.device.type == "cuda":
-        raise NotImplementedError(NP_MODE_ON_CUDA)
 
     def _apply(x2: torch.Tensor) -> torch.Tensor:
         x_pad = permute_to_tree(tree, x2)

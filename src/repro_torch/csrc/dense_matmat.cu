@@ -117,6 +117,16 @@ void launch_k(const float* rows, const float* cols, const float* x, float* y,
   }
 }
 
+template <int D>
+void launch_matvec(const float* rows, const float* cols, const float* x, float* y, int B,
+                   int C, int kernel_id, float matern_norm, cudaStream_t stream) {
+  if (kernel_id == repro::KERNEL_GAUSSIAN) {
+    launch<D, repro::KERNEL_GAUSSIAN, 1>(rows, cols, x, y, B, C, 1, matern_norm, stream);
+  } else {
+    launch<D, repro::KERNEL_MATERN, 1>(rows, cols, x, y, B, C, 1, matern_norm, stream);
+  }
+}
+
 }  // namespace
 
 // rows, cols: (B, C, d) f32; x: (B, C, R) f32; y: (B, C, R) f32, all
@@ -135,6 +145,27 @@ extern "C" int repro_dense_matmat(const float* rows, const float* cols, const fl
     case 1: launch_k<1>(rows, cols, x, y, B, C, R, kernel_id, matern_norm, s); break;
     case 2: launch_k<2>(rows, cols, x, y, B, C, R, kernel_id, matern_norm, s); break;
     case 3: launch_k<3>(rows, cols, x, y, B, C, R, kernel_id, matern_norm, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The vector form y[b] = phi(rows[b], cols[b]) @ x[b], which replaces the TPU
+// kernel batched_kernel_matvec_t (src/repro/kernels/batched_dense_matvec/
+// kernel.py, body _kernel): the RC = 1 instance of the kernel above.
+// rows, cols: (B, C, d) f32; x, y: (B, C) f32, all contiguous.
+extern "C" int repro_dense_matvec(const float* rows, const float* cols, const float* x,
+                                  float* y, int B, int C, int d, int kernel_id,
+                                  float matern_norm, void* stream) {
+  if (B <= 0 || C <= 0) return (int)cudaSuccess;
+  if (kernel_id != repro::KERNEL_GAUSSIAN && kernel_id != repro::KERNEL_MATERN) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 1: launch_matvec<1>(rows, cols, x, y, B, C, kernel_id, matern_norm, s); break;
+    case 2: launch_matvec<2>(rows, cols, x, y, B, C, kernel_id, matern_norm, s); break;
+    case 3: launch_matvec<3>(rows, cols, x, y, B, C, kernel_id, matern_norm, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

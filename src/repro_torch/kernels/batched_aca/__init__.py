@@ -1,1 +1,2 @@
-"""Batched low-rank apply of ACA factors: CUDA kernel, dispatch, plain version."""
+"""Batched ACA (factors) and low-rank apply of ACA factors: CUDA kernels,
+dispatch, plain versions."""

@@ -1,8 +1,8 @@
-"""Launch wrapper of the CUDA kernel ``csrc/lowrank_matmat.cu``.
+"""Launch wrappers of the CUDA kernels ``csrc/aca.cu`` and ``csrc/lowrank_matmat.cu``.
 
-Replaces ``repro/kernels/batched_aca/kernel.py:batched_lowrank_matmat_t``:
-``Y[b] = U[b] (V[b]^T X[b])`` for one level group of ACA factors.  The ACA
-itself (``batched_aca_t``) is not ported yet.
+Replace ``repro/kernels/batched_aca/kernel.py``: ``batched_aca_t`` (the
+fixed-rank ACA of one level group, pivot search on the card) and
+``batched_lowrank_matmat_t`` (``Y[b] = U[b] (V[b]^T X[b])``).
 """
 from __future__ import annotations
 
@@ -11,12 +11,80 @@ import ctypes
 import torch
 
 from ... import _build
+from ...core.geometry import matern_norm
 from .. import require_cuda_f32, stream_handle
+from ..phi import kernel_id
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ACA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 MAX_K = 64
 MAX_KR = 1024        # k * R per launch; wider panels go in column chunks
 MAX_BATCH = 65535
+MAX_POINT_DIM = 3
+
+
+def _aca_launch(rpts: torch.Tensor, rids: torch.Tensor, cpts: torch.Tensor,
+                cids: torch.Tensor, m: int, n: int, kernel_name: str, k: int):
+    """Factor the B = len(rids) blocks ``phi(rpts cluster rids[b], cpts cluster
+    cids[b])`` (clusters of m and n points) -> (U, V, pivot keys (2, k, B)).
+    A block with an id outside its point array gets NaN factors.
+
+    Key ``[0, r, b]`` holds step r's row pivot of block b and key ``[1, r,
+    b]`` step r + 1's column pivot, as ``2^32 - 1 - index`` in the low 32
+    bits (step 0's column is 0)."""
+    what = "batched_aca"
+    dev = rpts.device
+    b, d = rids.shape[0], rpts.shape[1]
+    if not 1 <= d <= MAX_POINT_DIM:
+        raise ValueError(f"{what}: the kernel takes point dimension 1..{MAX_POINT_DIM}, got {d}")
+    if not 1 <= k <= MAX_K or b > MAX_BATCH:
+        raise ValueError(f"{what}: the kernel takes 1 <= k <= {MAX_K} and at most "
+                         f"{MAX_BATCH} blocks, got k={k}, B={b}")
+    if not 1 <= m <= rpts.shape[0] or not 1 <= n <= cpts.shape[0] or max(m, n) >= 2 ** 31:
+        raise ValueError(f"{what}: block of {m} x {n} is empty or larger than its points")
+    u = torch.empty((b, m, k), dtype=torch.float32, device=dev)
+    v = torch.empty((b, n, k), dtype=torch.float32, device=dev)
+    keys = torch.zeros((2, k, b), dtype=torch.int64, device=dev)
+    if b == 0:
+        return u, v, keys
+    uhat = torch.empty((b, m), dtype=torch.float32, device=dev)
+    fn = _build.c_function("aca", "repro_batched_aca", _ACA_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(rpts.data_ptr(), rids.data_ptr(), cpts.data_ptr(), cids.data_ptr(),
+                 u.data_ptr(), v.data_ptr(), uhat.data_ptr(), keys.data_ptr(),
+                 b, m, n, rpts.shape[0] // m, cpts.shape[0] // n, d, k, kernel_id(kernel_name),
+                 matern_norm(d), stream_handle(dev))
+    _build.check(err, what)
+    _build.LAUNCHES[what] += 1
+    return u, v, keys
+
+
+def batched_aca_level_cuda(points: torch.Tensor, row_ids: torch.Tensor, col_ids: torch.Tensor,
+                           level: int, kernel_name: str, k: int):
+    """Factor one level group without gathering its points.
+
+    points: (n_pad, d) float32 tree-ordered points; row_ids, col_ids: (B,)
+    int64 cluster ids at ``level`` (cluster i is rows [i m, (i + 1) m) with
+    m = n_pad >> level), all on one CUDA device -> U, V: (B, m, k).  The
+    ids are not read back to the host (an apply needs no sync): a block
+    with an id outside [0, 2^level) gets NaN factors, and an H-matrix's
+    block groups are checked once, when ``hmatrix.block_groups`` builds them.
+    """
+    what = "batched_aca"
+    require_cuda_f32(what, points)
+    if points.ndim != 2 or row_ids.shape != col_ids.shape or row_ids.ndim != 1:
+        raise ValueError(f"{what}: shapes points {tuple(points.shape)}, row_ids "
+                         f"{tuple(row_ids.shape)}, col_ids {tuple(col_ids.shape)} do not "
+                         "match (n_pad, d), (B,), (B,)")
+    for ids in (row_ids, col_ids):
+        if ids.device != points.device or ids.dtype != torch.int64 or not ids.is_contiguous():
+            raise ValueError(f"{what}: cluster ids must be contiguous int64 on {points.device}")
+    n_pad = points.shape[0]
+    m = n_pad >> level
+    if m < 1 or m << level != n_pad:
+        raise ValueError(f"{what}: {n_pad} points do not split into 2^{level} clusters")
+    u, v, _ = _aca_launch(points, row_ids, points, col_ids, m, m, kernel_name, k)
+    return u, v
 
 
 def batched_lowrank_matmat_cuda(u: torch.Tensor, v: torch.Tensor,

@@ -7,11 +7,16 @@ from __future__ import annotations
 
 import torch
 
-from ..phi import pairwise_sqdist, phi_from_sqdist
+from ..phi import phi_matrix
+
+
+def batched_kernel_matvec_ref(rows: torch.Tensor, cols: torch.Tensor,
+                              x: torch.Tensor, kernel_name: str = "gaussian") -> torch.Tensor:
+    """rows, cols: (B, C, d); x: (B, C) -> (B, C)."""
+    return torch.bmm(phi_matrix(rows, cols, kernel_name), x[:, :, None])[:, :, 0]
 
 
 def batched_kernel_matmat_ref(rows: torch.Tensor, cols: torch.Tensor,
                               x: torch.Tensor, kernel_name: str = "gaussian") -> torch.Tensor:
     """rows, cols: (B, C, d); x: (B, C, R) -> (B, C, R)."""
-    a = phi_from_sqdist(pairwise_sqdist(rows, cols), kernel_name, rows.shape[-1])
-    return torch.bmm(a, x)
+    return torch.bmm(phi_matrix(rows, cols, kernel_name), x)

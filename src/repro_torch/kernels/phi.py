@@ -36,6 +36,12 @@ def phi_from_sqdist(d2: torch.Tensor, kernel_name: str, point_dim: int) -> torch
     raise ValueError(f"unknown kernel {kernel_name!r}")
 
 
+def phi_matrix(rows: torch.Tensor, cols: torch.Tensor, kernel_name: str) -> torch.Tensor:
+    """rows: (..., m, d), cols: (..., n, d) -> (..., m, n) kernel entries, as
+    the CUDA kernels compute them."""
+    return phi_from_sqdist(pairwise_sqdist(rows, cols), kernel_name, rows.shape[-1])
+
+
 def kernel_id(kernel_name: str) -> int:
     """Integer id of a kernel function as ``phi.cuh`` numbers them."""
     if kernel_name not in KERNEL_IDS:

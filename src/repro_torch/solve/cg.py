@@ -27,7 +27,7 @@ import torch
 
 from .._device import as_f32
 from ..core.clustering import permute_from_tree, permute_to_tree
-from ..core.hmatrix import NP_MODE_ON_CUDA, HMatrix, apply_in_tree_order, diagonal_blocks
+from ..core.hmatrix import HMatrix, apply_in_tree_order, diagonal_blocks
 
 
 class SolveInfo:
@@ -209,9 +209,6 @@ def make_solver(hm: HMatrix, sigma2: float, tol: float = 1e-5, max_iter: int = 3
     if mesh is not None:
         raise NotImplementedError("mesh= (the multi-GPU solver) is not ported yet; it "
                                   "comes with the multi-GPU slice of the port")
-    if hm.factors is None and hm.device.type == "cuda":
-        raise NotImplementedError(NP_MODE_ON_CUDA)
-
     tree, plan = hm.tree, hm.plan
     n = tree.n
     tol2 = float(tol) * float(tol)

@@ -5,21 +5,31 @@ nothing of JAX or ``repro`` so that they run on a GPU machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances as in ``chip_smoke.py``: 1e-5 relative (Frobenius) for the two
-products, 1e-4 for the Cholesky pair with ``|L L^T - A| / |A| <= 1e-5``.
+Tolerances as in ``chip_smoke.py``: 1e-5 relative (Frobenius) for the three
+products, 1e-4 for the Cholesky pair with ``|L L^T - A| / |A| <= 1e-5``,
+Morton codes exactly equal, and the ACA by the max error of ``U V^T``
+against the block, within ``max(2 x the plain version's, 1e-4)`` (the two
+may pick other pivots on near-ties).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.batched_aca.ops import batched_lowrank_matmat
-from repro_torch.kernels.batched_aca.ref import batched_lowrank_matmat_ref
+from repro_torch import _build
+from repro_torch.kernels.batched_aca import kernel as aca_kernel
+from repro_torch.kernels.batched_aca.ops import batched_aca_level, batched_lowrank_matmat
+from repro_torch.kernels.batched_aca.ref import batched_aca_ref, batched_lowrank_matmat_ref
 from repro_torch.kernels.batched_block_solve.ops import (batched_block_cholesky,
                                                          batched_block_cholesky_solve)
 from repro_torch.kernels.batched_block_solve.ref import (batched_block_cholesky_ref,
                                                          batched_block_cholesky_solve_ref)
-from repro_torch.kernels.batched_dense_matvec.ops import batched_kernel_matmat
-from repro_torch.kernels.batched_dense_matvec.ref import batched_kernel_matmat_ref
+from repro_torch.kernels.batched_dense_matvec.ops import (batched_kernel_matmat,
+                                                          batched_kernel_matvec)
+from repro_torch.kernels.batched_dense_matvec.ref import (batched_kernel_matmat_ref,
+                                                          batched_kernel_matvec_ref)
+from repro_torch.kernels.morton.ops import morton_encode
+from repro_torch.kernels.morton.ref import morton_encode_ref
+from repro_torch.kernels.phi import phi_matrix
 
 
 def _rs(seed):
@@ -82,7 +92,6 @@ def test_block_cholesky_kernels_match_plain_on_card(cuda_device, c, r):
 def test_build_apply_and_solve_on_card_match_the_cpu_port(cuda_device):
     """The whole path on the card (kernels) against the same path on the CPU
     (plain versions): same plan, apply within 1e-5, solve within tolerance."""
-    from repro_torch import _build
     from repro_torch.core import build_hmatrix, halton, make_apply
     from repro_torch.solve import make_solver
     pts = halton(3000, 2) * 16.0
@@ -103,5 +112,121 @@ def test_build_apply_and_solve_on_card_match_the_cpu_port(cuda_device):
     assert info_gpu.converged and info_cpu.converged
     assert np.abs(info_gpu.iters_per_column - info_cpu.iters_per_column).max() <= 1
     torch.testing.assert_close(c_gpu.cpu(), c_cpu, rtol=1e-3, atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        make_apply(build_hmatrix(pts, "gaussian", k=8, c_leaf=128))
+    # NP mode: the factors recomputed by the ACA kernel in every apply
+    hm_np = build_hmatrix(pts, "gaussian", k=8, c_leaf=128)
+    _build.reset_launches()
+    z_np = make_apply(hm_np)(x.to(cuda_device))
+    assert _build.LAUNCHES["batched_aca"] == len(hm_np.plan.aca_levels)
+    assert _rel(z_np, z_gpu) <= 1e-4
+    assert torch.equal(z_np, make_apply(hm_np)(x.to(cuda_device)))
+    c_np, info_np = make_solver(hm_np, 0.5, tol=1e-5)(x.to(cuda_device))
+    assert info_np.converged
+    assert np.abs(info_np.iters_per_column - info_gpu.iters_per_column).max() <= 2
+    torch.testing.assert_close(c_np, c_gpu, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d", [(96, 2), (256, 3), (2048, 2)])
+def test_dense_matvec_kernel_matches_plain_on_card(cuda_device, c, d):
+    g = torch.Generator(device="cpu").manual_seed(c + d)
+    rows = torch.rand(6, c, d, generator=g).to(cuda_device)
+    cols = torch.rand(6, c, d, generator=g).to(cuda_device) + 0.5
+    x = torch.randn(6, c, generator=g).to(cuda_device)
+    for kernel in ("gaussian", "matern"):
+        y = batched_kernel_matvec(rows, cols, x, kernel)
+        assert y.shape == (6, c)
+        assert _rel(y, batched_kernel_matvec_ref(rows, cols, x, kernel)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_morton_kernel_matches_plain_on_card(cuda_device, d):
+    pts = torch.rand(100_003, d, generator=torch.Generator().manual_seed(d))
+    pts[0], pts[1], pts[2, 0] = 0.0, 1.0, 1.0
+    codes = morton_encode(pts.to(cuda_device))
+    assert torch.equal(codes.cpu(), morton_encode_ref(pts))
+
+
+def _aca_err(rows, cols, u, v, kernel):
+    return float((phi_matrix(rows, cols, kernel) - u @ v.transpose(1, 2)).abs().max())
+
+
+def _aca_blocks(rows, cols, kernel, k):
+    """The ACA kernel on gathered blocks (B, m, d), (B, n, d) -> (U, V, row
+    pivots, column pivots), the pivots (B, k) decoded from the kernel's keys."""
+    b, m, d = rows.shape
+    ids = torch.arange(b, device=rows.device)
+    u, v, keys = aca_kernel._aca_launch(rows.reshape(-1, d), ids, cols.reshape(-1, d), ids,
+                                        m, cols.shape[1], kernel, k)
+    idx = 0xFFFFFFFF - (keys & 0xFFFFFFFF)
+    piv_cols = torch.zeros_like(idx[0].t())
+    piv_cols[:, 1:] = idx[1, :-1].t()
+    return u, v, idx[0].t(), piv_cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n,k", [(3, 64, 64, 8), (2, 300, 200, 16), (1, 5000, 5000, 16),
+                                     (4, 10, 12, 16)])
+@pytest.mark.parametrize("kernel", ["gaussian", "matern"])
+def test_aca_kernel_matches_plain_on_card(cuda_device, b, m, n, k, kernel):
+    g = torch.Generator(device="cpu").manual_seed(b + m + n + k)
+    rows = torch.rand(b, m, 2, generator=g).to(cuda_device)
+    cols = (torch.rand(b, n, 2, generator=g) + 1.5).to(cuda_device)
+    u, v, piv_rows, piv_cols = _aca_blocks(rows, cols, kernel, k)
+    ur, vr = batched_aca_ref(rows, cols, kernel, k)
+    assert _aca_err(rows, cols, u, v, kernel) <= max(2.0 * _aca_err(rows, cols, ur, vr, kernel),
+                                                     1e-4)
+    u2, v2, _, _ = _aca_blocks(rows, cols, kernel, k)
+    assert torch.equal(u, u2) and torch.equal(v, v2)               # no order-dependent sums
+    if min(m, n) >= k:
+        for blk in range(b):
+            assert len(set(piv_rows[blk].tolist())) == k
+            assert len(set(piv_cols[blk].tolist())) == k
+
+
+@pytest.mark.cuda
+def test_aca_level_kernel_reads_the_clusters_in_place(cuda_device):
+    pts = torch.rand(4096, 2, generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    rows = torch.tensor([0, 3, 5, 7], device=cuda_device)
+    cols = torch.tensor([6, 0, 1, 2], device=cuda_device)
+    u, v = batched_aca_level(pts, rows, cols, 3, "gaussian", 16)
+    grouped = pts.reshape(8, 512, 2)
+    u2, v2, _, _ = _aca_blocks(grouped[rows].contiguous(), grouped[cols].contiguous(),
+                               "gaussian", 16)
+    assert torch.equal(u, u2) and torch.equal(v, v2)
+    ur, vr = batched_aca_level(pts.cpu(), rows.cpu(), cols.cpu(), 3, "gaussian", 16)
+    # an id outside [0, 8) reads nothing outside pts: that block's factors are NaN
+    ub, vb = batched_aca_level(pts, torch.where(rows == 5, 8, rows), cols, 3, "gaussian", 16)
+    assert ub[2].isnan().all() and vb[2].isnan().all()
+    keep = torch.tensor([0, 1, 3], device=cuda_device)
+    assert torch.equal(ub[keep], u[keep]) and torch.equal(vb[keep], v[keep])
+    assert _aca_err(grouped[rows], grouped[cols], u, v, "gaussian") <= max(
+        2.0 * _aca_err(grouped[rows].cpu(), grouped[cols].cpu(), ur, vr, "gaussian"), 1e-4)
+
+
+@pytest.mark.cuda
+def test_device_build_on_card_matches_the_host_builder(cuda_device):
+    from repro_torch.core import (build_hmatrix, build_hmatrix_device,
+                                  build_hmatrix_device_report, dense_matvec_oracle, halton,
+                                  make_apply)
+    pts = halton(3000, 2) * 16.0
+    host = build_hmatrix(pts, "gaussian", k=8, c_leaf=128, precompute=True)
+    _build.reset_launches()
+    dev, report = build_hmatrix_device_report(pts, "gaussian", k=8, c_leaf=128,
+                                              precompute=True)
+    assert _build.LAUNCHES["morton_encode"] == 1
+    assert _build.LAUNCHES["batched_aca"] == len(dev.plan.aca_levels)
+    assert report.launches == 1 + len(dev.plan.aca_levels)
+    assert torch.equal(dev.tree.perm, host.tree.perm)
+    assert torch.equal(dev.tree.points, host.tree.points)
+    assert sorted(dev.plan.aca_levels) == sorted(host.plan.aca_levels)
+    for lv, blocks in host.plan.aca_levels.items():
+        np.testing.assert_array_equal(dev.plan.aca_levels[lv], blocks)
+    np.testing.assert_array_equal(dev.plan.dense_blocks, host.plan.dense_blocks)
+    x = torch.from_numpy(_rs(4).randn(3000, 4).astype(np.float32))
+    oracle = dense_matvec_oracle(pts, "gaussian", x, device="cpu")
+    assert _rel(make_apply(dev)(x.to(cuda_device)).cpu(), oracle) <= 1e-4
+    plain = build_hmatrix_device(pts, "gaussian", k=8, c_leaf=128, precompute=True,
+                                 use_kernels=False)
+    for lv, (u, v) in host.factors.items():
+        assert torch.equal(plain.factors[lv][0], u) and torch.equal(plain.factors[lv][1], v)

@@ -70,11 +70,24 @@ def test_port_build_matches_converted_reference():
 
 
 def test_np_mode_on_cpu_matches_p_mode():
+    """The plain NP route recomputes the P-mode build's factors (``core.aca``
+    on the kernel function); the kernel route's direct-difference entries are
+    held to the oracle in the next test."""
     pts, _, x = _problem(512, "gaussian", seed=2)
     hm_np = build_hmatrix(pts, "gaussian", k=8, c_leaf=64, device="cpu")
     hm_p = build_hmatrix(pts, "gaussian", k=8, c_leaf=64, precompute=True, device="cpu")
     assert hm_np.factors is None
-    torch.testing.assert_close(make_apply(hm_np)(x), make_apply(hm_p)(x), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(make_apply(hm_np, use_kernels=False)(x), make_apply(hm_p)(x),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kernel", ["gaussian", "matern"])
+def test_np_mode_kernel_route_meets_the_oracle(kernel):
+    pts, _, x = _problem(512, kernel, seed=5, precompute=False)
+    hm_np = build_hmatrix(pts, kernel, k=8, c_leaf=64, device="cpu")
+    oracle = dense_matvec_oracle(pts, kernel, x, device="cpu").numpy()
+    assert rel_err(make_apply(hm_np)(x).numpy(), oracle) <= 1e-4
+    assert rel_err(make_apply(hm_np)(x[:, 3]).numpy(), oracle[:, 3]) <= 1e-4
 
 
 def test_diagonal_blocks_match_reference_with_ragged_last_leaf():

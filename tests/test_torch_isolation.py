@@ -18,14 +18,17 @@ import pytest
 import torch
 
 from repro_torch import _build
-from repro_torch.core import build_hmatrix, dense_matvec_oracle
+from repro_torch.core import build_hmatrix, build_hmatrix_device, dense_matvec_oracle
 from repro_torch.kernels.batched_aca import kernel as aca_kernel
-from repro_torch.kernels.batched_aca.ops import batched_lowrank_matmat
+from repro_torch.kernels.batched_aca.ops import batched_aca_level, batched_lowrank_matmat
 from repro_torch.kernels.batched_block_solve import kernel as solve_kernel
 from repro_torch.kernels.batched_block_solve.ops import (batched_block_cholesky,
                                                          batched_block_cholesky_solve)
 from repro_torch.kernels.batched_dense_matvec import kernel as dense_kernel
-from repro_torch.kernels.batched_dense_matvec.ops import batched_kernel_matmat
+from repro_torch.kernels.batched_dense_matvec.ops import (batched_kernel_matmat,
+                                                          batched_kernel_matvec)
+from repro_torch.kernels.morton import kernel as morton_kernel
+from repro_torch.kernels.morton.ops import morton_encode
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -82,6 +85,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         build_hmatrix(pts)
     with pytest.raises(RuntimeError, match="CUDA"):
+        build_hmatrix_device(pts)
+    with pytest.raises(RuntimeError, match="CUDA"):
         dense_matvec_oracle(pts, "gaussian", torch.ones(64))
 
 
@@ -94,6 +99,13 @@ def test_dispatchers_send_non_cpu_tensors_to_the_kernel_and_raise():
     version: the dispatcher hands it to the CUDA wrapper, which refuses it."""
     with pytest.raises(ValueError, match="CUDA"):
         batched_kernel_matmat(_meta(2, 8, 2), _meta(2, 8, 2), _meta(2, 8, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_kernel_matvec(_meta(2, 8, 2), _meta(2, 8, 2), _meta(2, 8))
+    ids = torch.zeros(2, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_aca_level(_meta(16, 2), ids, ids, 1, "gaussian", 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        morton_encode(_meta(16, 2))
     with pytest.raises(ValueError, match="CUDA"):
         batched_lowrank_matmat(_meta(2, 8, 4), _meta(2, 8, 4), _meta(2, 8, 1))
     with pytest.raises(ValueError, match="CUDA"):
@@ -108,6 +120,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.zeros(2, 8, 1)
     with pytest.raises(ValueError, match="CUDA"):
         dense_kernel.batched_kernel_matmat_cuda(torch.zeros(2, 8, 2), torch.zeros(2, 8, 2), x)
+    with pytest.raises(ValueError, match="CUDA"):
+        dense_kernel.batched_kernel_matvec_cuda(torch.zeros(2, 8, 2), torch.zeros(2, 8, 2),
+                                                x[:, :, 0])
+    with pytest.raises(ValueError, match="CUDA"):
+        aca_kernel.batched_aca_level_cuda(torch.zeros(16, 2), torch.zeros(2, dtype=torch.int64),
+                                          torch.zeros(2, dtype=torch.int64), 1, "gaussian", 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        morton_kernel.morton_encode_cuda(torch.zeros(16, 2))
     with pytest.raises(ValueError, match="CUDA"):
         aca_kernel.batched_lowrank_matmat_cuda(torch.zeros(2, 8, 4), torch.zeros(2, 8, 4), x)
     with pytest.raises(ValueError, match="CUDA"):
