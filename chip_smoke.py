@@ -10,9 +10,12 @@ Phases (any failure ends the run with a non-zero exit code):
      shapes of the main path (block pairs, level groups and diagonal blocks
      taken from problems P and K; P's 2^20 points for the Morton encode; up
      to 8 blocks of every ACA level group of P and K, K's also on the unit
-     square), with times of kernel, plain version and the PyTorch library
-     call that computes the same function (the ACA also on all level groups
-     of P, as one build runs it);
+     square; the recompression on all level groups of P's store, on wide
+     (8192, 256, 64) panels with a geometric sigma decay and on all-zero
+     blocks; the panel triangular solve and the dense Schur update at H-LU's
+     batch shapes), with times of kernel, plain version and the PyTorch
+     library call that computes the same function (the ACA also on all
+     level groups of P, as one build runs it);
   2. problem P, the paper's model problem (N = 2^20 Halton points on the
      unit square, gaussian, k = 16, c_leaf = 2048, eta = 1.5, P mode):
      build, apply to an (N, 8) panel and an (N,) vector, 512 sampled rows
@@ -29,9 +32,22 @@ Phases (any failure ends the run with a non-zero exit code):
   5. NP mode (factors recomputed by the ACA kernel in every apply): P at
      full width, an (N, 8) panel and an (N,) vector against exact rows,
      two applies bit-identical, ms per apply; then K's block-Jacobi PCG to
-     convergence, iterations held to the P-mode kernel path's.
+     convergence, iterations held to the P-mode kernel path's;
+  6. the memory tier on P (device-built store): ``recompress_store`` at tol
+     1e-2 and 1e-3 (bytes, k per level, the report), 512 sampled rows of the
+     recompressed apply against the flat store's within 5 tol, apply times,
+     ``build_hmatrix_device(recompress_tol=1e-2)`` against recompressing the
+     device-built store (equal ranks), and ``spill`` / ``reload`` (the apply
+     after it bit-identical, seconds of each);
+  7. H-LU on K: ``make_solver(precond="hlu", hlu_opts={"tol": 1e-3})`` to
+     convergence in at most 3 iterations per column (``repro``: 1), residual
+     checked with a separate apply, two solves bit-identical, the report
+     (tile grid, steps, runs, ranks, bytes), setup split into the FACTOR,
+     TRSM, SCHUR and re-truncation kernels' shares, ms per iteration; then
+     the same factorization through the plain versions on the card, held
+     buffer by buffer to the kernel path's.
 
-Kernel launch counts are set to 0 before each of phases 2 to 5 and read
+Kernel launch counts are set to 0 before each of phases 2 to 7 and read
 after it: each phase must have launched the kernels of its own path
 (``PATH_KERNELS``), and every kernel must have run on the main path.  The
 last lines are a ``{"kernels": [...]}`` JSON line, the card's name and power
@@ -60,10 +76,19 @@ PEAK_FP32 = 67e12      # H100 SXM, FLOP/s outside the tensor cores (data sheet)
 PEAK_INT32 = PEAK_FP32 / 4
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (data sheet)
 SEED = 0
+T_START = time.perf_counter()
 
 # JAX reference, problem K (sigma2 = 1e-2, tol = 1e-3, R = 8): iterations
-# per column of repro.solve.make_solver on the CPU
+# per column of repro.solve.make_solver on the CPU, block Jacobi and H-LU
+# (hlu_opts={"tol": 1e-3})
 K_REFERENCE_ITERS = [145, 148, 143, 143, 143, 143, 147, 142]
+K_HLU_REFERENCE_ITERS = [1] * 8
+# K's H-LU tile grid and schedule (repro.harith on the plan of build_hmatrix)
+K_HLU_TILES = {"t": 128, "dense": 2723, "low_rank": 5533, "promoted": 1593}
+K_HLU_SCHEDULE = {"steps": 128, "runs": 64}
+# K's H-LU through the kernels against the plain versions on the card, max
+# abs difference: dense tiles, and low-rank tiles as u v^T
+HLU_DENSE_LIMIT, HLU_LOWRANK_LIMIT = 1e-4, 1e-5
 
 KERNELS = {
     "batched_kernel_matvec": ("src/repro_torch/csrc/dense_matmat.cu",
@@ -80,6 +105,12 @@ KERNELS = {
                                      "src/repro/kernels/batched_block_solve/kernel.py:119"),
     "morton_encode": ("src/repro_torch/csrc/morton.cu",
                       "src/repro/kernels/morton/kernel.py:54"),
+    "batched_recompress": ("src/repro_torch/csrc/recompress.cu",
+                           "src/repro/kernels/batched_recompress/kernel.py:170"),
+    "batched_trsm_panels": ("src/repro_torch/csrc/trsm_panels.cu",
+                            "src/repro/kernels/batched_trsm_lowrank/kernel.py:63"),
+    "batched_schur_dense": ("src/repro_torch/csrc/schur_dense.cu",
+                            "src/repro/kernels/batched_schur_update/kernel.py:48"),
 }
 # the kernels each main-path phase must launch itself
 PATH_KERNELS = {
@@ -91,6 +122,9 @@ PATH_KERNELS = {
     "np_mode": ("batched_aca", "batched_kernel_matmat", "batched_kernel_matvec",
                 "batched_lowrank_matmat", "batched_block_cholesky",
                 "batched_block_cholesky_solve"),
+    "memory_tier": ("batched_recompress", "batched_lowrank_matmat", "morton_encode"),
+    "hlu": ("batched_block_cholesky", "batched_recompress", "batched_trsm_panels",
+            "batched_schur_dense", "batched_kernel_matmat", "batched_lowrank_matmat"),
 }
 P_BUILD = dict(kernel="gaussian", k=16, c_leaf=2048, eta=1.5)
 K_BUILD = dict(kernel="gaussian", k=16, c_leaf=256, eta=1.5)
@@ -495,6 +529,193 @@ def check_aca(hm_p, hm_k, rng, record):
         "timed_shape": "every level group of problem P, k=16 (sum over levels)"}
 
 
+def lowrank_err(u, v, u2, v2, chunk: int = 512):
+    """Per-block ``|U V^T - U2 V2^T|_F`` and ``|U V^T|_F`` (float64, from
+    the panels' Gram matrices, so no (m, n) block is formed)."""
+    errs, norms = [], []
+    for b0 in range(0, u.shape[0], chunk):
+        a, b, a2, b2 = (t[b0:b0 + chunk].double() for t in (u, v, u2, v2))
+        def frob2(x, y, x2, y2):
+            return ((x.transpose(1, 2) @ x2) * (y.transpose(1, 2) @ y2)).sum(dim=(1, 2))
+        n2 = frob2(a, b, a, b)
+        e2 = n2 - 2.0 * frob2(a, b, a2, b2) + frob2(a2, b2, a2, b2)
+        errs.append(torch.sqrt(torch.clamp(e2, min=0.0)))
+        norms.append(torch.sqrt(n2))
+    return torch.cat(errs), torch.cat(norms)
+
+
+def recompress_work(b: int, m: int, n: int, k: int, sweeps: float) -> tuple[float, float]:
+    """Bytes (U and V read once, U' and V' written once) and operations of
+    one recompression: the Grams (m + n) k (k + 1), the transforms
+    2 (m + n) k^2, and per Jacobi sweep run k (k - 1) / 2 pairs of 3 dot
+    products and 2 column rotations of M and Z (18 k)."""
+    nbytes = 4.0 * 2 * b * (m + n) * k
+    ops = float(b) * ((m + n) * k * (k + 1) + 2.0 * (m + n) * k * k) \
+        + sweeps * k * (k - 1) / 2.0 * 18.0 * k
+    return nbytes, ops
+
+
+def check_recompress_group(u, v, tol: float):
+    """#8 against its plain version on one batch: (record, Jacobi sweeps).
+    Passes when every block's reconstruction error is within 2 tol of its
+    Frobenius norm and, on every block of the plain version's rank, within
+    0.1 tol of the plain version's own error (a block of another rank has
+    parted from it at a singular value on the cut)."""
+    from repro_torch.kernels.batched_recompress.kernel import batched_recompress_cuda
+    from repro_torch.kernels.batched_recompress.ref import batched_recompress_ref
+    u2, v2, s, ranks, sweeps = batched_recompress_cuda(u, v, tol)
+    ur, vr, rr = batched_recompress_ref(u, v, tol)
+    err, norm = lowrank_err(u, v, u2, v2)
+    err_ref, _ = lowrank_err(u, v, ur, vr)
+    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+    rel, rel_ref = err / safe, err_ref / safe
+    same_rank = ranks == rr
+    differ = int((~same_rank).sum())
+    gap = float((rel - rel_ref).abs()[same_rank].max()) if bool(same_rank.any()) else 0.0
+    trailing_zero = all(bool((u2[i, :, r:] == 0).all() and (v2[i, :, r:] == 0).all())
+                        for i, r in enumerate(ranks.tolist()))
+    rec = {"B": u.shape[0], "m": u.shape[1], "k": u.shape[2], "tol": tol,
+           "blocks_with_other_rank": differ, "max_rel_err": float(rel.max()),
+           "plain_max_rel_err": float(rel_ref.max()), "max_rel_err_gap_same_rank": gap,
+           "max_abs_err": max_abs(u2 @ v2[:, :64].transpose(1, 2),
+                                  ur @ vr[:, :64].transpose(1, 2)),
+           "ranks_max": int(ranks.max()), "ranks_mean": float(ranks.double().mean()),
+           "sweeps_mean": float(sweeps.double().mean()), "trailing_zero": trailing_zero,
+           "finite": bool(torch.isfinite(u2).all() and torch.isfinite(v2).all())}
+    require(rec["finite"] and trailing_zero, f"batched_recompress {rec}: non-finite output or "
+            "nonzero columns past the rank")
+    require(float(rel.max()) <= 2.0 * tol,
+            f"batched_recompress B={u.shape[0]} m={u.shape[1]}: relative reconstruction error "
+            f"{float(rel.max())} > 2 tol ({differ} blocks of another rank)")
+    require(gap <= 0.1 * tol,
+            f"batched_recompress B={u.shape[0]} m={u.shape[1]}: on blocks of the plain "
+            f"version's rank the relative error parts from the plain version's by {gap} > 0.1 tol")
+    return rec, sweeps
+
+
+def check_recompress(hm_p, rng, record):
+    """#8 on all 7 level groups of P's store (tol 1e-2 and 1e-3), on
+    (8192, 256, 64) panels with a geometric sigma decay (H-LU's width) and
+    on a batch with all-zero blocks."""
+    from repro_torch.kernels.batched_recompress.kernel import batched_recompress_cuda
+    from repro_torch.kernels.batched_recompress.ref import batched_recompress_ref
+    checks, per_level, totals = [], {}, {}
+    for tol in (1e-2, 1e-3):
+        ms = plain = nbytes = ops = 0.0
+        for level in sorted(hm_p.factors.keys()):
+            u, v = hm_p.factors[level]
+            rec, sweeps = check_recompress_group(u, v, tol)
+            rec["level"] = level
+            checks.append(rec)
+            t = gpu_ms(lambda: batched_recompress_cuda(u, v, tol), 3)
+            tp = gpu_ms(lambda: batched_recompress_ref(u, v, tol), 1, warmup=0)
+            b_, o_ = recompress_work(*u.shape[:2], v.shape[1], u.shape[2],
+                                     float(sweeps.double().sum()))
+            per_level[f"{tol}/{level}"] = {"B": u.shape[0], "m": u.shape[1], "ms": t,
+                                           "plain_ms": tp}
+            ms, plain, nbytes, ops = ms + t, plain + tp, nbytes + b_, ops + o_
+            torch.cuda.empty_cache()
+        totals[tol] = (ms, plain, nbytes, ops)
+    # H-LU's width: (8192, 256, 64) with a geometric sigma decay, tol 1e-3
+    scale = torch.from_numpy((0.35 ** np.arange(64)).astype(np.float32)).cuda()
+    u = randn((8192, 256, 64), rng) * scale
+    v = randn((8192, 256, 64), rng)
+    rec, sweeps = check_recompress_group(u, v, 1e-3)
+    rec["shape"] = "decaying"
+    checks.append(rec)
+    wide_ms = gpu_ms(lambda: batched_recompress_cuda(u, v, 1e-3), 3)
+    wide_plain = gpu_ms(lambda: batched_recompress_ref(u, v, 1e-3), 1, warmup=0)
+    wide_bytes, wide_ops = recompress_work(8192, 256, 256, 64, float(sweeps.double().sum()))
+    # all-zero blocks (K's H-LU is mostly made of them) next to decaying ones
+    u[::2], v[1::4] = 0.0, 0.0
+    u_z, v_z = u[:256].contiguous(), v[:256].contiguous()
+    rec, _ = check_recompress_group(u_z, v_z, 1e-3)
+    _, _, _, ranks, _ = batched_recompress_cuda(u_z, v_z, 1e-3)
+    zero = (u_z.abs().amax(dim=(1, 2)) == 0) | (v_z.abs().amax(dim=(1, 2)) == 0)
+    rec["shape"] = "zero blocks"
+    rec["zero_blocks"] = int(zero.sum())
+    rec["zero_blocks_rank0"] = bool((ranks[zero] == 0).all())
+    checks.append(rec)
+    require(rec["zero_blocks_rank0"], "batched_recompress: an all-zero block kept a rank")
+    del u, v, u_z, v_z
+    ms, plain, nbytes, ops = totals[1e-2]
+    bms, by = bound_ms(nbytes, ops)
+    wide_bms, wide_by = bound_ms(wide_bytes, wide_ops)
+    record["batched_recompress"] = {
+        "checks": checks, "max_abs_err": max(ch["max_abs_err"] for ch in checks),
+        "blocks_with_other_rank": sum(ch["blocks_with_other_rank"] for ch in checks),
+        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "ms_tol_1e-3": totals[1e-3][0], "plain_ms_tol_1e-3": totals[1e-3][1],
+        "bound_ms_tol_1e-3": bound_ms(totals[1e-3][2], totals[1e-3][3])[0],
+        "per_level_P": per_level, "wide_ms": wide_ms, "wide_plain_ms": wide_plain,
+        "wide_bound_ms": wide_bms, "wide_bound_by": wide_by,
+        "timed_shape": "all 7 level groups of problem P's store, k=16, tol=1e-2 (sum); "
+                       "wide_*: (8192, 256, 64) decaying panels, tol=1e-3"}
+
+
+def k_lower_factor(hm_k) -> torch.Tensor:
+    """One shifted diagonal block of K, factored by the Cholesky kernel:
+    the L_tt an H-LU step hands to TRSM, (1, 256, 256)."""
+    from repro_torch.kernels.batched_block_solve.kernel import batched_block_cholesky_cuda
+    return batched_block_cholesky_cuda(shifted_diagonal(hm_k, 1e-2, 1))
+
+
+def check_trsm(hm_k, rng, record):
+    """#9 at H-LU's largest TRSM batches of K: (32, 256, 256) dense tiles and
+    (128, 256, 32) low-rank V panels, one L_tt for the batch."""
+    from repro_torch.kernels.batched_trsm_lowrank.kernel import batched_trsm_panels_cuda
+    from repro_torch.kernels.batched_trsm_lowrank.ref import batched_trsm_panels_ref
+    lmat = k_lower_factor(hm_k)
+    c = lmat.shape[1]
+    checks, ms, plain, lib, nbytes, ops = [], 0.0, 0.0, 0.0, 4.0 * c * c, 0.0
+    for b, p in ((32, 256), (128, 32)):
+        x = randn((b, c, p), rng)
+        y = batched_trsm_panels_cuda(lmat, x)
+        y_ref = batched_trsm_panels_ref(lmat, x)
+        err = rel_err(y, y_ref)
+        checks.append({"B": b, "c": c, "P": p, "rel_err": err, "max_abs_err": max_abs(y, y_ref)})
+        require(err <= 1e-4, f"batched_trsm_panels B={b} P={p}: rel err {err}")
+        ms += gpu_ms(lambda: batched_trsm_panels_cuda(lmat, x), 10)
+        plain += gpu_ms(lambda: batched_trsm_panels_ref(lmat, x), 1)
+        lib += gpu_ms(lambda: torch.linalg.solve_triangular(lmat, x, upper=False), 10)
+        nbytes += 4.0 * 2 * b * c * p
+        ops += float(b) * c * c * p
+    bms, by = bound_ms(nbytes, ops)
+    record["batched_trsm_panels"] = {
+        "checks": checks, "max_abs_err": max(ch["max_abs_err"] for ch in checks),
+        "rel_err": max(ch["rel_err"] for ch in checks), "ms": ms, "plain_ms": plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "timed_shape": "(32, 256, 256) + (128, 256, 32), one L_tt of K (sum of the two)"}
+
+
+def check_schur(rng, record):
+    """#10 at H-LU's largest dense-target batches of K: sdd (512, 256, 256,
+    p=256) and sll_d (4096, 256, 256, p=32)."""
+    from repro_torch.kernels.batched_schur_update.kernel import batched_schur_dense_cuda
+    from repro_torch.kernels.batched_schur_update.ref import batched_schur_dense_ref
+    checks, ms, plain, lib, nbytes, ops = [], 0.0, 0.0, 0.0, 0.0, 0.0
+    for b, p in ((512, 256), (4096, 32)):
+        cc, a, bb = randn((b, 256, 256), rng), randn((b, 256, p), rng), randn((b, 256, p), rng)
+        y = batched_schur_dense_cuda(cc, a, bb)
+        y_ref = batched_schur_dense_ref(cc, a, bb)
+        err = rel_err(y, y_ref)
+        checks.append({"B": b, "m": 256, "n": 256, "p": p, "rel_err": err,
+                       "max_abs_err": max_abs(y, y_ref)})
+        require(err <= 1e-5, f"batched_schur_dense B={b} p={p}: rel err {err}")
+        ms += gpu_ms(lambda: batched_schur_dense_cuda(cc, a, bb), 5)
+        plain += gpu_ms(lambda: batched_schur_dense_ref(cc, a, bb), 3)
+        lib += gpu_ms(lambda: torch.baddbmm(cc, a, bb.transpose(1, 2), alpha=-1), 5)
+        nbytes += 4.0 * b * (2 * 256 * 256 + 2 * 256 * p)
+        ops += 2.0 * b * 256 * 256 * p
+        del cc, a, bb, y, y_ref
+    bms, by = bound_ms(nbytes, ops)
+    record["batched_schur_dense"] = {
+        "checks": checks, "max_abs_err": max(ch["max_abs_err"] for ch in checks),
+        "rel_err": max(ch["rel_err"] for ch in checks), "ms": ms, "plain_ms": plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "timed_shape": "(512, 256, 256, p=256) + (4096, 256, 256, p=32) (sum of the two)"}
+
+
 # ---------------------------------------------------------------------------
 # phases 2 and 3: the main path
 # ---------------------------------------------------------------------------
@@ -693,10 +914,248 @@ def run_np_mode(pts_p, pts_k, iters_kern, allowed, rng, out):
             f"by more than {allowed} per column")
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the memory tier and H-LU
+# ---------------------------------------------------------------------------
+
+
+def run_memory_tier(pts_p, rng, out):
+    """P's device-built store: recompression at two tolerances, the
+    recompressed apply against the flat one, the device build with
+    recompress_tol, spill and reload."""
+    import dataclasses
+
+    from repro_torch.core import (FactorStore, build_hmatrix_device,
+                                  build_hmatrix_device_report, make_apply, recompress_store)
+    hm = build_hmatrix_device(pts_p, precompute=True, **P_BUILD)
+    flat = hm.factors
+    x = randn((hm.tree.n, 8), rng)
+    idx = torch.from_numpy(np.sort(rng.choice(hm.tree.n, 512, replace=False))).cuda()
+    z_flat = make_apply(hm)(x)[idx]
+    flat_ms = gpu_ms(lambda: make_apply(hm)(x), 3)
+    res = {"flat_bytes": flat.nbytes()["total"], "flat_apply_ms_R8": flat_ms}
+    log(f"[memory tier] flat store {res['flat_bytes']} bytes, apply R=8 {flat_ms:.3f} ms")
+    hm_1e2 = None
+    for tol in (1e-2, 1e-3):
+        store = FactorStore(dict(flat.levels), dict(flat.rank_tables))
+        report, secs = wall_s(lambda: recompress_store(store, tol))
+        hm_t = dataclasses.replace(hm, factors=store)
+        apply_t = make_apply(hm_t)
+        err = rel_err(apply_t(x)[idx], z_flat)
+        ms = gpu_ms(lambda: apply_t(x), 3)
+        res[f"tol_{tol}"] = {
+            "bytes_before": report.bytes_before, "bytes_after": report.bytes_after,
+            "ratio": report.ratio, "per_level_k": report.per_level_k,
+            "recompress_store_s": secs, "apply_ms_R8": ms,
+            "sampled_rows_rel_err_vs_flat": err,
+            "ranks_mean": {lv: float(t.double().mean()) for lv, t in store.rank_tables.items()}}
+        log(f"[memory tier] tol {tol}: {report.bytes_before} -> {report.bytes_after} bytes "
+            f"(ratio {report.ratio:.4f}), k per level {report.per_level_k}, recompress_store "
+            f"{secs:.3f} s; apply R=8 {ms:.3f} ms (flat {flat_ms:.3f}); rel err of 512 rows "
+            f"vs the flat store {err:.3e}")
+        require(err <= 5.0 * tol, f"memory tier tol {tol}: rel err {err} vs the flat store")
+        if tol == 1e-2:
+            hm_1e2 = hm_t
+        torch.cuda.empty_cache()
+    # the device build with recompress_tol: the same ranks as recompressing
+    # the device-built store
+    hm_d, report = build_hmatrix_device_report(pts_p, precompute=True, recompress_tol=1e-2,
+                                               **P_BUILD)
+    same = all(torch.equal(hm_d.factors.rank_table(lv), hm_1e2.factors.rank_table(lv))
+               and hm_d.factors[lv][0].shape == hm_1e2.factors[lv][0].shape
+               for lv in hm_1e2.factors.keys())
+    res["device_build_recompress"] = {"recompress_s": report.recompress_s,
+                                      "total_s": report.total_s, "ranks_equal": same}
+    log(f"[memory tier] build_hmatrix_device(recompress_tol=1e-2): recompress "
+        f"{report.recompress_s:.3f} s of {report.total_s:.3f} s; ranks equal to recompressing "
+        f"the device-built store {same}")
+    require(same, "memory tier: the device build's recompressed ranks differ")
+    del hm_d
+    # spill and reload of the recompressed store
+    store = hm_1e2.factors
+    apply_t = make_apply(hm_1e2)
+    z0 = apply_t(x)
+    freed, t_spill = wall_s(store.spill)
+    raised = False
+    try:                   # the refusal this check expects, not a failure
+        apply_t(x)
+    except RuntimeError as err:
+        raised = "spilled" in str(err)
+    restored, t_reload = wall_s(store.reload)
+    identical = bool(torch.equal(apply_t(x), z0))
+    res["spill_reload"] = {"bytes": freed, "spill_s": t_spill, "reload_s": t_reload,
+                           "apply_on_spilled_raised": raised, "bit_identical_after": identical}
+    log(f"[memory tier] spill {freed} bytes in {t_spill:.3f} s, reload {restored} in "
+        f"{t_reload:.3f} s; apply on the spilled store raised {raised}; apply after reload "
+        f"bit-identical {identical}")
+    require(raised and identical and restored == freed, "memory tier: spill / reload failed")
+    out["memory_tier"] = res
+
+
+def timed_hlu_kernels(events: dict):
+    """``harith.hlu._kernels`` with each kernel call bracketed by CUDA events
+    (appended to ``events[name]``), for the setup's split by kernel."""
+    from repro_torch.harith import hlu
+    orig = hlu._kernels
+    names = ("batched_block_cholesky", "batched_trsm_panels", "batched_schur_dense",
+             "batched_recompress")
+
+    def wrap(fn, name):
+        def call(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = fn(*args)
+            end.record()
+            events.setdefault(name, []).append((start, end))
+            return y
+        return call
+
+    return lambda use_kernels: tuple(wrap(f, n) for f, n in zip(orig(use_kernels), names))
+
+
+def tf32_hlu_factorization(hm):
+    """K's H-LU through the kernel path with TF32 matmuls on and the dense
+    Schur update in TF32 ``torch.baddbmm``: the lower-precision control of
+    the phase-7 limits."""
+    from repro_torch.harith import factorize_hlu, hlu
+    orig, tf32 = hlu._kernels, torch.backends.cuda.matmul.allow_tf32
+
+    def schur_tf32(c, a, b):
+        return torch.baddbmm(c, a, b.transpose(1, 2), alpha=-1.0)
+
+    hlu._kernels = lambda use_kernels: (orig(use_kernels)[:2] + (schur_tf32,)
+                                        + orig(use_kernels)[3:])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return factorize_hlu(hm, 1e-2, tol=1e-3)
+    finally:
+        hlu._kernels, torch.backends.cuda.matmul.allow_tf32 = orig, tf32
+
+
+def compare_hlu_factors(fa, fb, chunk: int = 512) -> tuple[float, float]:
+    """Max abs differences of two factorizations: dense tiles directly,
+    low-rank tiles as u v^T (their factors are fixed up to signs)."""
+    dense = max_abs(fa.dense, fb.dense)
+    lowrank = 0.0
+    for i0 in range(0, fa.ulr.shape[0], chunk):
+        sl = slice(i0, i0 + chunk)
+        lowrank = max(lowrank, max_abs(fa.ulr[sl] @ fa.vlr[sl].transpose(1, 2),
+                                       fb.ulr[sl] @ fb.vlr[sl].transpose(1, 2)))
+    return dense, lowrank
+
+
+def run_hlu(pts_k, iters_bj, out):
+    """K's regression solve with the H-LU preconditioner."""
+    from repro_torch.core import build_hmatrix, make_apply, sinusoid_targets
+    from repro_torch.solve import make_solver
+    sigma2 = 1e-2
+    hm = build_hmatrix(pts_k, precompute=True, **K_BUILD)
+    f = sinusoid_targets(pts_k, 8, 32.0)
+    solver, t_make = wall_s(lambda: make_solver(hm, sigma2, tol=1e-3, max_iter=300,
+                                                precond="hlu", hlu_opts={"tol": 1e-3}))
+    pre = solver.preconditioner
+    (c_sol, info), t_solve = wall_s(lambda: solver(f))
+    c_again, _ = solver(f)
+    iters = info.iters_per_column.tolist()
+    resid = rel_err(make_apply(hm)(c_sol) + sigma2 * c_sol, f)
+    identical = bool(torch.equal(c_sol, c_again))
+    rep = pre.report()
+    res = {"setup_s": pre.setup_seconds, "make_solver_s": t_make, "solve_s": t_solve,
+           "iterations": info.iterations, "iters_per_column": iters,
+           "reference_iters_per_column": K_HLU_REFERENCE_ITERS,
+           "block_jacobi_iters_per_column": iters_bj, "converged": info.converged,
+           "relative_residual": resid, "solves_bit_identical": identical, "report": rep}
+    out["hlu"] = res
+    log(f"[H-LU] setup {pre.setup_seconds:.3f} s; solve {t_solve:.3f} s, iterations per column "
+        f"{iters} (repro {K_HLU_REFERENCE_ITERS}, block Jacobi {iters_bj}); relative residual "
+        f"{resid:.3e}; two solves bit-identical {identical}")
+    log(f"[H-LU] report {rep}")
+    require(info.converged, "H-LU: not every column converged")
+    require(resid <= 1e-4, f"H-LU: relative residual {resid}")
+    require(all(abs(a - b) <= 2 for a, b in zip(iters, K_HLU_REFERENCE_ITERS)),
+            f"H-LU: iterations {iters} not within 2 of repro's {K_HLU_REFERENCE_ITERS}")
+    require(identical, "H-LU: two solves are not bit-identical")
+    require(rep["tiles"] == K_HLU_TILES and rep["schedule"] == K_HLU_SCHEDULE,
+            f"H-LU: tile grid {rep['tiles']} / schedule {rep['schedule']} differ from "
+            f"{K_HLU_TILES} / {K_HLU_SCHEDULE}")
+    return hm, pre, f
+
+
+def run_hlu_measurements(hm, pre, f, rng, out):
+    """Outside the counted run: the setup split by kernel (a second, timed
+    factorization, which must give the same buffers), the per-iteration
+    parts, the factorization through the plain versions on the card (with
+    the PCG iterations it gives) and a TF32 control of its limits."""
+    from repro_torch.core import make_apply
+    from repro_torch.core.clustering import permute_to_tree
+    from repro_torch.harith import HLUPreconditioner, factorize_hlu, hlu, hlu_solve_panels
+    from repro_torch.solve import make_solver
+    res = out["hlu"]
+    events: dict = {}
+    orig = hlu._kernels
+    hlu._kernels = timed_hlu_kernels(events)
+    try:
+        timed, t_timed = wall_s(lambda: factorize_hlu(hm, 1e-2, tol=1e-3))
+    finally:
+        hlu._kernels = orig
+    split = {name: sum(s.elapsed_time(e) for s, e in evs) / 1e3 for name, evs in events.items()}
+    calls = {name: len(evs) for name, evs in events.items()}
+    same = all(torch.equal(a, b) for a, b in ((timed.dense, pre.factors.dense),
+                                              (timed.ulr, pre.factors.ulr),
+                                              (timed.vlr, pre.factors.vlr)))
+    res["setup_split_s"] = split
+    res["setup_split_calls"] = calls
+    res["timed_factorization_s"] = t_timed
+    res["factorizations_bit_identical"] = same
+    log(f"[H-LU] timed factorization {t_timed:.3f} s; kernel seconds {split} over calls "
+        f"{calls}; the rest is gathers, scatters and products around them; bit-identical to "
+        f"the first {same}")
+    require(same, "H-LU: two factorizations differ")
+    del timed
+    # per iteration: one H-LU solve and one apply on an (n_pad, 8) panel
+    x = randn((hm.tree.n, 8), rng)
+    r_pad = permute_to_tree(hm.tree, x)
+    res["hlu_solve_panels_ms"] = gpu_ms(lambda: hlu_solve_panels(pre.factors, r_pad), 3)
+    res["apply_ms_R8"] = gpu_ms(lambda: make_apply(hm)(x), 3)
+    res["ms_per_iteration"] = res["hlu_solve_panels_ms"] + res["apply_ms_R8"]
+    log(f"[H-LU] per iteration: hlu_solve_panels {res['hlu_solve_panels_ms']:.3f} ms + apply "
+        f"{res['apply_ms_R8']:.3f} ms")
+    # the plain versions on the card, buffer by buffer
+    plain, t_plain = wall_s(lambda: factorize_hlu(hm, 1e-2, tol=1e-3, use_kernels=False))
+    d_dense, d_lowrank = compare_hlu_factors(pre.factors, plain)
+    res["plain"] = {"factorization_s": t_plain, "dense_max_abs_diff": d_dense,
+                    "lowrank_uvT_max_abs_diff": d_lowrank,
+                    "finite": bool(torch.isfinite(plain.dense).all()
+                                   and torch.isfinite(plain.ulr).all())}
+    plain_solver = make_solver(hm, 1e-2, tol=1e-3, max_iter=300,
+                               precond=HLUPreconditioner(plain, t_plain, 1e-3, plain.meta.kp))
+    plain_iters = plain_solver(f)[1].iters_per_column.tolist()
+    res["plain"].update(iters_per_column=plain_iters, ranks=plain.rank_stats())
+    log(f"[H-LU plain] factorization {t_plain:.3f} s; max abs difference to the kernel path: "
+        f"dense tiles {d_dense:.3e}, low-rank tiles (u v^T) {d_lowrank:.3e}; PCG iterations "
+        f"with it {plain_iters}; ranks {res['plain']['ranks']}")
+    require(res["plain"]["finite"], "H-LU plain path: non-finite factors")
+    # fp32 SIMT kernels against cuBLAS / cuSOLVER in fp32: the dense tiles
+    # and u v^T part by fp32 rounding only (H100 readings 1.4e-5 and 4.1e-7)
+    require(d_dense <= HLU_DENSE_LIMIT and d_lowrank <= HLU_LOWRANK_LIMIT,
+            f"H-LU: kernel and plain factorizations differ by {d_dense} (dense tiles, limit "
+            f"{HLU_DENSE_LIMIT}) and {d_lowrank} (u v^T, limit {HLU_LOWRANK_LIMIT})")
+    # control: the kernel path with TF32 matmuls and the dense Schur update
+    # through TF32 baddbmm, held to the same limits (recorded, not gated)
+    control = tf32_hlu_factorization(hm)
+    c_dense, c_lowrank = compare_hlu_factors(control, plain)
+    res["tf32_control"] = {"dense_max_abs_diff": c_dense, "lowrank_uvT_max_abs_diff": c_lowrank,
+                           "within_limits": c_dense <= HLU_DENSE_LIMIT
+                           and c_lowrank <= HLU_LOWRANK_LIMIT}
+    log(f"[H-LU TF32 control] max abs difference to the plain factorization: dense tiles "
+        f"{c_dense:.3e}, low-rank tiles (u v^T) {c_lowrank:.3e}; within the limits "
+        f"{res['tf32_control']['within_limits']}")
+
+
 def main(record: dict) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="012345",
-                        help="phases to run (default all: 012345); 0 is always run")
+    parser.add_argument("--phases", default="01234567",
+                        help="phases to run (default all: 01234567); 0 is always run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -734,6 +1193,9 @@ def main(record: dict) -> int:
         check_cholesky(hm_p, hm_k, rng, record["kernels"])
         check_morton(pts_p, record["kernels"])
         check_aca(hm_p, hm_k, rng, record["kernels"])
+        check_recompress(hm_p, rng, record["kernels"])
+        check_trsm(hm_k, rng, record["kernels"])
+        check_schur(rng, record["kernels"])
         for name, rec in record["kernels"].items():
             log(f"[1] {name}: max abs err {rec['max_abs_err']:.3e}, kernel {rec['ms']:.3f} ms, "
                 f"plain {rec['plain_ms']:.3f} ms, library {rec['library_ms']}, bound "
@@ -750,6 +1212,19 @@ def main(record: dict) -> int:
                 f"{ch['blocks_with_other_pivots']} blocks")
         log(f"[1] batched_aca: {aca['blocks_with_other_pivots']} of {aca['blocks_checked']} "
             "checked blocks chose another pivot sequence than the plain version")
+        rc = record["kernels"]["batched_recompress"]
+        for ch in rc["checks"]:
+            log(f"[1] batched_recompress {ch.get('level', ch.get('shape'))} ({ch['B']} x "
+                f"{ch['m']} x {ch['k']}, tol {ch['tol']}): {ch['blocks_with_other_rank']} blocks "
+                f"of another rank than the plain version; max relative reconstruction error "
+                f"{ch['max_rel_err']:.3e} (plain {ch['plain_max_rel_err']:.3e}; largest gap on "
+                f"blocks of equal rank {ch['max_rel_err_gap_same_rank']:.3e}); ranks max "
+                f"{ch['ranks_max']} mean {ch['ranks_mean']:.3f}; Jacobi sweeps mean "
+                f"{ch['sweeps_mean']:.2f}")
+        log(f"[1] batched_recompress on all groups of P at tol 1e-3: {rc['ms_tol_1e-3']:.3f} ms "
+            f"(plain {rc['plain_ms_tol_1e-3']:.3f}); on (8192, 256, 64) panels: "
+            f"{rc['wide_ms']:.3f} ms (plain {rc['wide_plain_ms']:.3f}, bound "
+            f"{rc['wide_bound_ms']:.3f} by {rc['wide_bound_by']})")
         torch.cuda.empty_cache()
 
     launches = {name: 0 for name in _build.LAUNCHES}
@@ -757,11 +1232,16 @@ def main(record: dict) -> int:
     def count_launches(key: str) -> None:
         torch.cuda.synchronize()
         record.setdefault(key, {})["launches"] = dict(_build.LAUNCHES)
+        record[key]["oracle_calls"] = dict(_build.ORACLE_CALLS)
         for name, count in _build.LAUNCHES.items():
             launches[name] += count
-        log(f"[{key}] launches {record[key]['launches']}")
+        log(f"[{key}] launches {record[key]['launches']}; oracle-route calls "
+            f"{record[key]['oracle_calls']}")
         missing = [name for name in PATH_KERNELS[key] if _build.LAUNCHES[name] == 0]
         require(not missing, f"{key}: kernels of this path never launched: {missing}")
+        # the QR + SVD route below the Gram floor is taken by neither phase
+        require(not any(_build.ORACLE_CALLS.values()),
+                f"{key}: the oracle route was taken: {_build.ORACLE_CALLS}")
 
     if "2" in args.phases:
         _build.reset_launches()
@@ -794,10 +1274,24 @@ def main(record: dict) -> int:
         _build.reset_launches()
         run_np_mode(pts_p, pts_k, iters_kern, allowed, rng, record)
         count_launches("np_mode")
-    if set("2345") <= set(args.phases):
+        torch.cuda.empty_cache()
+    if "6" in args.phases:
+        _build.reset_launches()
+        run_memory_tier(pts_p, rng, record)
+        count_launches("memory_tier")
+        torch.cuda.empty_cache()
+    if "7" in args.phases:
+        _build.reset_launches()
+        hm_hlu, pre, f_k = run_hlu(pts_k, iters_kern if "3" in args.phases else None, record)
+        count_launches("hlu")
+        run_hlu_measurements(hm_hlu, pre, f_k, rng, record)
+        del hm_hlu, pre
+    if set("234567") <= set(args.phases):
         missing = [name for name, count in launches.items() if count == 0]
         require(not missing, f"kernels never launched on the main path: {missing}")
     record["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    record["wall_s"] = time.perf_counter() - T_START
+    log(f"[end] peak memory {record['peak_memory_gib']:.2f} GiB; wall {record['wall_s']:.1f} s")
 
     kernels_line = []
     for name, (source, replaces) in KERNELS.items():

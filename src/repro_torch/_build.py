@@ -7,7 +7,8 @@ of the checkout.  Nothing is built when a module is imported: the first
 kernel launch builds everything (or ``build_all()`` does, explicitly).
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else.  ``ORACLE_CALLS`` counts the
+calls that take a documented plain route of the reference on the card.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("dense_matmat", "lowrank_matmat", "block_cholesky", "block_cholesky_solve",
-           "aca", "morton")
+           "aca", "morton", "recompress", "trsm_panels", "schur_dense")
 
 LAUNCHES: dict[str, int] = {
     "batched_kernel_matvec": 0,
@@ -35,7 +36,15 @@ LAUNCHES: dict[str, int] = {
     "batched_block_cholesky": 0,
     "batched_block_cholesky_solve": 0,
     "morton_encode": 0,
+    "batched_recompress": 0,
+    "batched_trsm_panels": 0,
+    "batched_schur_dense": 0,
 }
+
+# calls of a documented plain route of the reference that a wrapper takes on
+# the card (the QR + SVD oracle of batched_recompress below its Gram floor);
+# not launches
+ORACLE_CALLS: dict[str, int] = {"batched_recompress": 0}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -43,8 +52,9 @@ BUILD_INFO: dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ORACLE_CALLS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:

@@ -6,7 +6,8 @@ Public API:
     build_cluster_tree, permute_to_tree, permute_from_tree      (CBC, §2.1)
     build_block_tree, HMatrixPlan                               (block tree)
     batched_aca                                                 (ACA, §2.4)
-    FactorStore, effective_ranks                                (factor storage)
+    FactorStore, effective_ranks, recompress_store,
+    RecompressReport                                            (factor storage, memory tier)
     build_hmatrix, make_apply, make_matvec, HMatrix,
     diagonal_blocks, dense_matvec_oracle                        (assembly + apply)
     build_hmatrix_device, build_hmatrix_device_report,
@@ -19,7 +20,7 @@ from .clustering import ClusterTree, build_cluster_tree, permute_from_tree, perm
 from .admissibility import admissible, diam, dist
 from .block_tree import HMatrixPlan, build_block_tree
 from .aca import batched_aca
-from .factor_store import FactorStore, effective_ranks
+from .factor_store import FactorStore, RecompressReport, effective_ranks, recompress_store
 from .hmatrix import (HMatrix, apply_in_tree_order, build_hmatrix, compute_factors,
                       dense_matvec_oracle, diagonal_blocks, make_apply, make_matvec)
 from .build_device import (BuildReport, build_hmatrix_device, build_hmatrix_device_report,
@@ -33,7 +34,7 @@ __all__ = [
     "admissible", "diam", "dist",
     "HMatrixPlan", "build_block_tree",
     "batched_aca",
-    "FactorStore", "effective_ranks",
+    "FactorStore", "effective_ranks", "recompress_store", "RecompressReport",
     "HMatrix", "build_hmatrix", "make_apply", "make_matvec",
     "dense_matvec_oracle", "compute_factors", "diagonal_blocks",
     "apply_in_tree_order",

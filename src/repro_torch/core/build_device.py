@@ -44,7 +44,7 @@ from .._device import as_f32, resolve_device
 from .admissibility import admissible
 from .block_tree import HMatrixPlan
 from .clustering import ClusterTree, _level_bounding_boxes, next_pow2
-from .factor_store import FactorStore
+from .factor_store import FactorStore, recompress_store
 from .geometry import get_kernel, kernel_name_of
 from .hmatrix import HMatrix, block_groups, compute_factors
 from .morton import morton_encode as morton_encode_plain
@@ -180,6 +180,7 @@ class BuildReport:
     launches: int                   # hand-written kernel launches (``_build.LAUNCHES``)
     num_aca_blocks: int
     num_dense_blocks: int
+    recompress_s: float = 0.0       # build-time recompression pass (``recompress_tol``)
 
 
 def _sync(dev: torch.device) -> None:
@@ -211,13 +212,13 @@ def build_hmatrix_device_report(
     ``use_kernels`` routes the Morton code and the factors through the CUDA
     kernels (their plain versions for CPU tensors); ``False`` takes
     ``core.morton`` and ``core.aca``, the host builder's own functions.
+    ``recompress_tol`` truncates the fresh store (``recompress_store``, the
+    kernel with ``use_kernels``, else the QR + SVD oracle); its wall time is
+    ``report.recompress_s``.
     """
     if chaos is not None:
         raise NotImplementedError("chaos= (fault containment of the build launches) is not "
                                   "ported yet; it comes with serve/faults.py")
-    if recompress_tol is not None:
-        raise NotImplementedError("recompression (recompress_tol=) is not ported yet; "
-                                  "it comes with the memory-tier slice of the port")
     dev = resolve_device(device)
     kname = kernel_name_of(kernel)
     pts = as_f32(coords, dev)
@@ -245,12 +246,17 @@ def build_hmatrix_device_report(
             compute_factors_device(tree, plan, kname, k, groups, use_kernels), plan=plan)
     _sync(dev)
     t2 = time.perf_counter()
+    recompress_s = 0.0
+    if factors is not None and recompress_tol is not None:
+        recompress_store(factors, recompress_tol, use_kernels=use_kernels)
+        _sync(dev)
+        recompress_s = time.perf_counter() - t2
 
     hm = HMatrix(tree=tree, plan=plan, kernel=get_kernel(kname), kernel_name=kname, k=k,
                  factors=factors, groups=groups)
     report = BuildReport(n=n, n_pad=n_pad, n_levels=n_levels, plan_s=t1 - t0,
-                         factors_s=t2 - t1, total_s=t2 - t0,
+                         factors_s=t2 - t1, total_s=t2 - t0 + recompress_s,
                          launches=sum(_build.LAUNCHES.values()) - launches_before,
                          num_aca_blocks=plan.num_aca_blocks,
-                         num_dense_blocks=plan.num_dense_blocks)
+                         num_dense_blocks=plan.num_dense_blocks, recompress_s=recompress_s)
     return hm, report

@@ -5,10 +5,19 @@ Port of the essentials of ``repro.core.factor_store``: level group
 ``B = plan.aca_levels[level].shape[0]`` and ``m = n = n_pad >> level``;
 ``rank_tables[level]`` is a ``(B,)`` int32 table of effective ranks (columns
 at or beyond it are exactly zero in both factors).  The store reads like a
-``{level: (U, V)}`` dict.  Dense leaf storage, spill, reload and
-recompression are not ported yet.
+``{level: (U, V)}`` dict.  ``k`` may differ per level after recompression.
+
+Memory tier.  ``spill()`` copies every tensor to host memory (pinned when the
+store lies on a card) and drops the device tensors; ``reload()`` copies them
+back.  Both are all-or-nothing: every copy is made before the store switches
+over.  A spilled store refuses to hand out its factors, so an apply against
+it raises instead of reading host memory.  ``recompress_store`` truncates
+every level group to a relative tolerance (kernel ``batched_recompress``).
+Dense leaf storage (``repro``'s ``dense=``) is not ported.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -29,11 +38,12 @@ class FactorStore:
     """Packed, level-grouped factor storage with rank tables and byte
     accounting; mapping-compatible with a ``{level: (U, V)}`` dict."""
 
-    __slots__ = ("levels", "rank_tables")
+    __slots__ = ("levels", "rank_tables", "_device")
 
     def __init__(self, levels, rank_tables):
         self.levels = dict(levels)
         self.rank_tables = dict(rank_tables)
+        self._device = None                # set while spilled: where to reload
         if set(self.levels) != set(self.rank_tables):
             raise ValueError(
                 f"rank table levels {sorted(self.rank_tables)} != factor "
@@ -87,7 +97,13 @@ class FactorStore:
 
     # -- dict compatibility ---------------------------------------------
 
+    def _check_resident(self):
+        if self._device is not None:
+            raise RuntimeError("FactorStore is spilled to host; reload() before using it "
+                               "in a device computation")
+
     def __getitem__(self, level):
+        self._check_resident()
         return self.levels[level]
 
     def __contains__(self, level):
@@ -106,10 +122,19 @@ class FactorStore:
         return self.levels.keys()
 
     def values(self):
+        self._check_resident()
         return self.levels.values()
 
     def items(self):
+        self._check_resident()
         return self.levels.items()
+
+    @property
+    def is_spilled(self) -> bool:
+        return self._device is not None
+
+    def rank_table(self, level):
+        return self.rank_tables[level]
 
     def nbytes(self):
         """Exact byte accounting from tensor metadata (never syncs)."""
@@ -120,3 +145,95 @@ class FactorStore:
         low = sum(per_level.values())
         return {"low_rank": low, "ranks": rank_b, "per_level": per_level,
                 "total": low + rank_b}
+
+    # -- memory tier -----------------------------------------------------
+
+    def _tensors(self):
+        return [t for uv in self.levels.values() for t in uv] + list(self.rank_tables.values())
+
+    def _rebuild(self, copied):
+        it = iter(copied)
+        self.levels = {lv: (next(it), next(it)) for lv in self.levels}
+        self.rank_tables = {lv: next(it) for lv in self.rank_tables}
+
+    def spill(self) -> int:
+        """Copy every tensor to host memory and drop the device tensors.
+
+        Returns the bytes released (0 if already spilled).  The copies are
+        pinned when the store lies on a card, so ``reload`` copies at full
+        rate; all of them are made before the store switches over.
+        """
+        if self.is_spilled:
+            return 0
+        tensors = self._tensors()
+        device = tensors[0].device if tensors else torch.device("cpu")
+        pin = device.type == "cuda"
+        host = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+            h.copy_(t)
+            host.append(h)
+        freed = self.nbytes()["total"]
+        self._rebuild(host)
+        self._device = device
+        return freed
+
+    def reload(self) -> int:
+        """Copy the host tensors back to the device they were spilled from.
+
+        All-or-nothing: if a copy fails the store stays spilled with its host
+        copies intact.  Returns the bytes restored (0 if not spilled).
+        """
+        if not self.is_spilled:
+            return 0
+        back = [t.to(self._device, non_blocking=True) for t in self._tensors()]
+        if self._device.type == "cuda":
+            torch.cuda.current_stream(self._device).synchronize()
+        self._rebuild(back)
+        self._device = None
+        return self.nbytes()["total"]
+
+
+@dataclass(frozen=True)
+class RecompressReport:
+    """What one recompression pass did to a store."""
+
+    tol: float
+    bytes_before: int
+    bytes_after: int
+    per_level_k: dict   # level -> (k_before, k_after)
+
+    @property
+    def ratio(self) -> float:
+        return self.bytes_after / max(self.bytes_before, 1)
+
+
+def recompress_store(store: FactorStore, tol: float, use_kernels: bool = True) -> RecompressReport:
+    """SVD-truncate every level group of ``store`` in place.
+
+    Block ``b`` keeps singular values ``sigma_i > tol * sigma_0(b)``, so its
+    spectral error is at most ``tol * sigma_0(b)``.  Each level is re-packed
+    to its largest surviving rank (one host read of that rank per level) and
+    its rank table refreshed.  ``use_kernels`` routes through the dispatcher
+    (kernel ``batched_recompress`` for CUDA tensors, the QR + SVD oracle on
+    the CPU and below the Gram floor); ``False`` takes the oracle on any
+    device.
+    """
+    if store.is_spilled:
+        raise RuntimeError("cannot recompress a spilled store; reload() first")
+    if use_kernels:
+        from ..kernels.batched_recompress.ops import batched_recompress as fn
+    else:
+        from ..kernels.batched_recompress.ref import batched_recompress_ref as fn
+    before = store.nbytes()["total"]
+    per_level = {}
+    for level in sorted(store.keys()):
+        u, v = store[level]
+        k_old = int(u.shape[2])
+        u2, v2, ranks = fn(u, v, tol)
+        k_new = min(max(int(ranks.max()), 1), k_old) if ranks.numel() else 1
+        store.levels[level] = (u2[:, :, :k_new].contiguous(), v2[:, :, :k_new].contiguous())
+        store.rank_tables[level] = ranks
+        per_level[level] = (k_old, k_new)
+    return RecompressReport(tol=float(tol), bytes_before=before,
+                            bytes_after=store.nbytes()["total"], per_level_k=per_level)

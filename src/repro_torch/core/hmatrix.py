@@ -30,7 +30,7 @@ from .._device import as_f32, resolve_device
 from .aca import batched_aca
 from .block_tree import HMatrixPlan, build_block_tree
 from .clustering import ClusterTree, build_cluster_tree, permute_from_tree, permute_to_tree
-from .factor_store import FactorStore
+from .factor_store import FactorStore, recompress_store
 from .geometry import get_kernel, kernel_name_of
 
 
@@ -135,11 +135,12 @@ def build_hmatrix(coords, kernel: str | Callable = "gaussian", k: int = 16,
 
     ``coords`` is an (N, d) array or tensor.  ``device=None`` means CUDA and
     raises ``RuntimeError`` when there is no card.  With ``precompute`` the
-    factors come as a :class:`FactorStore`.
+    factors come as a :class:`FactorStore`; ``recompress_tol`` then
+    SVD-truncates every level group to that relative tolerance
+    (``recompress_store``).  The reference's host builder truncates with its
+    QR + SVD oracle; here the dispatcher decides, so on the CPU both take the
+    oracle and on the card the recompression kernel runs.
     """
-    if recompress_tol is not None:
-        raise NotImplementedError("recompression (recompress_tol=) is not ported yet; "
-                                  "it comes with the memory-tier slice of the port")
     dev = resolve_device(device)
     kname = kernel_name_of(kernel)
     kfn = get_kernel(kname)
@@ -150,6 +151,8 @@ def build_hmatrix(coords, kernel: str | Callable = "gaussian", k: int = 16,
     if precompute:
         factors = FactorStore.from_factors(compute_factors(tree, plan, kfn, k, groups),
                                            plan=plan)
+        if recompress_tol is not None:
+            recompress_store(factors, recompress_tol)
     return HMatrix(tree=tree, plan=plan, kernel=kfn, kernel_name=kname, k=k,
                    factors=factors, groups=groups)
 

@@ -1,7 +1,7 @@
 """repro_torch.solve — multi-RHS H-matrix Krylov solves (paper §1, eq. 1).
 
 Public API:
-    make_solver      block-Jacobi (or plain) active-mask PCG over the H-apply
+    make_solver      block-Jacobi, H-LU (or plain) active-mask PCG over the H-apply
     host_loop_cg     CG with a host residual check per iteration
     SolveInfo        lazy per-solve convergence record
     build_preconditioner, pcg_tree_ordered

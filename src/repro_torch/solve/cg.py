@@ -14,6 +14,9 @@ Port of ``repro.solve.cg``.  The reference runs the whole solve as one
     Cholesky-factorised once (kernel ``batched_block_cholesky``) and every
     iteration applies ``z = M^{-1} r`` as B independent triangular solves
     (kernel ``batched_block_cholesky_solve``) on the reshaped panel;
+  * or H-LU (``precond="hlu"``): an approximate H-Cholesky factorised once
+    (``repro_torch.harith``), applied every iteration by two block sweeps
+    (``harith.hlu.hlu_solve_panels``);
   * pad rows (``n_pad > n``) are masked out of the operator and the
     preconditioner, so the iteration runs on the leading (n, n) system.
 """
@@ -28,6 +31,8 @@ import torch
 from .._device import as_f32
 from ..core.clustering import permute_from_tree, permute_to_tree
 from ..core.hmatrix import HMatrix, apply_in_tree_order, diagonal_blocks
+from ..harith.hlu import HLUFactors, hlu_solve_panels
+from ..harith.precond import HLUPreconditioner, make_hlu_preconditioner
 
 
 class SolveInfo:
@@ -127,7 +132,7 @@ def pcg_tree_ordered(tree, plan, kernel, k: int, use_kernels: bool, sigma2: floa
     """Active-mask PCG on a TREE-ordered panel ``b_pad: (n_pad, R)``.
 
     ``tol2`` is the SQUARED absolute residual tolerance; ``chol`` the
-    block-Jacobi factors or None.  Returns ``(x_pad, it, iters_col, rr)``
+    block-Jacobi factors, the H-LU factors (``HLUFactors``) or None.  Returns ``(x_pad, it, iters_col, rr)``
     with ``rr`` the final squared residual norms; ``it ==
     iters_col.max()``, as in the reference.
     """
@@ -150,6 +155,8 @@ def pcg_tree_ordered(tree, plan, kernel, k: int, use_kernels: bool, sigma2: floa
     def prec(r):
         if chol is None:
             return r
+        if isinstance(chol, HLUFactors):
+            return _mask(hlu_solve_panels(chol, r))
         rb = r.reshape(n_leaf, c, r_width)
         if use_kernels:
             from ..kernels.batched_block_solve.ops import batched_block_cholesky_solve
@@ -190,29 +197,44 @@ def pcg_tree_ordered(tree, plan, kernel, k: int, use_kernels: bool, sigma2: floa
 
 def make_solver(hm: HMatrix, sigma2: float, tol: float = 1e-5, max_iter: int = 300,
                 precondition: bool = True, use_kernels: bool = True, mesh=None,
-                precond: str | None = None) -> Callable:
+                precond: str | HLUPreconditioner | None = None,
+                hlu_opts: dict | None = None) -> Callable:
     """Build the solver for ``(A + sigma2 I) C = F``.
 
-    ``tol`` is the per-column ABSOLUTE residual tolerance; ``precond`` is
-    ``"bj"`` (block Jacobi, the default) or ``"none"``, with the legacy
-    ``precondition`` switch used when ``precond`` is None.  ``use_kernels``
-    routes the H-apply and the block solves through the kernel wrappers.
-    Returns ``solve(F) -> (C, SolveInfo)`` for ``F: (N,)`` or ``(N, R)``.
+    ``tol`` is the per-column ABSOLUTE residual tolerance.  ``precond`` is
+    ``"bj"`` (block Jacobi, the default), ``"hlu"`` (an approximate
+    H-Cholesky factorised here with ``make_hlu_preconditioner(**hlu_opts)``,
+    ``tol`` and ``kp``), ``"none"``, or a prebuilt ``HLUPreconditioner``
+    used as it is; the legacy ``precondition`` switch applies when
+    ``precond`` is None.  The H-LU preconditioner is exposed as
+    ``solve.preconditioner`` (None otherwise).  ``use_kernels`` routes the
+    H-apply, the block solves and the factorization through the kernel
+    wrappers.  Returns ``solve(F) -> (C, SolveInfo)`` for ``F: (N,)`` or
+    ``(N, R)``.
     """
-    if precond is None:
+    pre = None
+    if isinstance(precond, HLUPreconditioner):
+        pre, precond = precond, "hlu"
+    elif precond is None:
         precond = "bj" if precondition else "none"
-    if precond == "hlu":
-        raise NotImplementedError("precond='hlu' is not ported yet; it comes with the "
-                                  "H-LU slice of the port")
-    if precond not in ("bj", "none"):
-        raise ValueError(f"unknown precond {precond!r}; expected 'bj' or 'none'")
+    if precond not in ("bj", "hlu", "none"):
+        raise ValueError(f"unknown precond {precond!r}; expected 'bj', 'hlu', 'none' or an "
+                         "HLUPreconditioner")
     if mesh is not None:
         raise NotImplementedError("mesh= (the multi-GPU solver) is not ported yet; it "
                                   "comes with the multi-GPU slice of the port")
     tree, plan = hm.tree, hm.plan
     n = tree.n
     tol2 = float(tol) * float(tol)
-    chol = build_preconditioner(hm, sigma2, use_kernels) if precond == "bj" else None
+    if precond == "hlu":
+        if pre is None:
+            pre = make_hlu_preconditioner(hm, sigma2, use_kernels=use_kernels,
+                                          **(hlu_opts or {}))
+        chol = pre.factors
+    elif precond == "bj":
+        chol = build_preconditioner(hm, sigma2, use_kernels)
+    else:
+        chol = None
 
     def solve(f):
         f = as_f32(f, hm.device)
@@ -227,4 +249,5 @@ def make_solver(hm: HMatrix, sigma2: float, tol: float = 1e-5, max_iter: int = 3
         info = SolveInfo(it, iters_col, torch.sqrt(rr), tol)
         return (x[:, 0] if f.ndim == 1 else x), info
 
+    solve.preconditioner = pre
     return solve

@@ -135,8 +135,9 @@ def test_unported_options_raise():
     pts, c_leaf, eta = _points("single-leaf")
     with pytest.raises(NotImplementedError, match="chaos"):
         build_hmatrix_device(pts, c_leaf=c_leaf, chaos="nan:1.0", device="cpu")
-    with pytest.raises(NotImplementedError, match="recompress"):
-        build_hmatrix_device(pts, c_leaf=c_leaf, precompute=True, recompress_tol=1e-2,
-                             device="cpu")
+    # recompress_tol= is ported: the store comes truncated, with its time
+    hm, report = build_hmatrix_device_report(pts, c_leaf=c_leaf, precompute=True,
+                                             recompress_tol=1e-2, device="cpu")
+    assert hm.factors is not None and report.recompress_s >= 0.0
     with pytest.raises(ValueError, match="power of two"):
         build_hmatrix_device(pts, c_leaf=100, device="cpu")

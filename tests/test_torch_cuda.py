@@ -6,10 +6,13 @@ nothing of JAX or ``repro`` so that they run on a GPU machine without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances as in ``chip_smoke.py``: 1e-5 relative (Frobenius) for the three
-products, 1e-4 for the Cholesky pair with ``|L L^T - A| / |A| <= 1e-5``,
-Morton codes exactly equal, and the ACA by the max error of ``U V^T``
-against the block, within ``max(2 x the plain version's, 1e-4)`` (the two
-may pick other pivots on near-ties).
+products and the dense Schur update, 1e-4 for the Cholesky pair with
+``|L L^T - A| / |A| <= 1e-5`` and for the panel triangular solve, Morton
+codes exactly equal, the ACA by the max error of ``U V^T`` against the
+block, within ``max(2 x the plain version's, 1e-4)`` (the two may pick
+other pivots on near-ties), and the recompression (Gram + Jacobi against
+the plain QR + SVD) by equal ranks or a reconstruction error within
+``2 tol`` of each block's Frobenius norm.
 """
 import numpy as np
 import pytest
@@ -230,3 +233,130 @@ def test_device_build_on_card_matches_the_host_builder(cuda_device):
                                  use_kernels=False)
     for lv, (u, v) in host.factors.items():
         assert torch.equal(plain.factors[lv][0], u) and torch.equal(plain.factors[lv][1], v)
+
+
+def _decaying(b, m, n, k, seed):
+    rng = _rs(seed)
+    scale = (0.35 ** np.arange(k)).astype(np.float32)
+    u = torch.from_numpy(rng.randn(b, m, k).astype(np.float32) * scale)
+    v = torch.from_numpy(rng.randn(b, n, k).astype(np.float32))
+    return u, v
+
+
+def _recompress_ok(u, v, u2, v2, ranks, ur, vr, ranks_ref, tol):
+    """Every block within 2 tol of its Frobenius norm, and every block of the
+    plain version's rank within 0.1 tol of the plain version's own error."""
+    a0 = u.double() @ v.double().transpose(1, 2)
+    norm = torch.linalg.matrix_norm(a0).clamp_min(1e-300)
+    rel = torch.linalg.matrix_norm(u2.double() @ v2.double().transpose(1, 2) - a0) / norm
+    rel_ref = torch.linalg.matrix_norm(ur.double() @ vr.double().transpose(1, 2) - a0) / norm
+    same = ranks == ranks_ref
+    return bool((rel <= 2 * tol).all()) and bool(((rel - rel_ref).abs()[same] <= 0.1 * tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n,k,tol", [(6, 48, 40, 12, 1e-2), (5, 256, 256, 64, 1e-3),
+                                         (3, 5000, 3000, 16, 1e-2), (4, 70, 90, 7, 1e-1)])
+def test_recompress_kernel_matches_plain_on_card(cuda_device, b, m, n, k, tol):
+    from repro_torch.kernels.batched_recompress.kernel import batched_recompress_cuda
+    from repro_torch.kernels.batched_recompress.ops import batched_recompress
+    from repro_torch.kernels.batched_recompress.ref import batched_recompress_ref
+    u, v = _decaying(b, m, n, k, seed=m + k)
+    u[1], v[-1] = 0.0, 0.0                             # all-zero blocks
+    ug, vg = u.to(cuda_device), v.to(cuda_device)
+    _build.reset_launches()
+    u2, v2, ranks = batched_recompress(ug, vg, tol)
+    assert _build.LAUNCHES["batched_recompress"] == 1
+    ur, vr, r_ref = batched_recompress_ref(u, v, tol)
+    assert _recompress_ok(u, v, u2.cpu(), v2.cpu(), ranks.cpu(), ur, vr, r_ref, tol)
+    assert ranks[1] == 0 and ranks[-1] == 0
+    assert bool(torch.isfinite(u2).all()) and bool(torch.isfinite(v2).all())
+    for blk, r in enumerate(ranks.tolist()):
+        assert bool((u2[blk, :, r:] == 0).all()) and bool((v2[blk, :, r:] == 0).all())
+    _, _, s, ranks2, sweeps = batched_recompress_cuda(ug, vg, tol)
+    assert torch.equal(ranks2, ranks)
+    assert bool((s[:, 1:] <= s[:, :-1]).all()) and bool((sweeps >= 1).all())
+    assert bool((sweeps <= 8).all())
+    u3, v3, _ = batched_recompress(ug, vg, tol)       # no order-dependent sums
+    assert torch.equal(u2, u3) and torch.equal(v2, v3)
+    _build.reset_launches()
+    batched_recompress(ug, vg, 1e-4)                  # below the Gram floor: the oracle
+    assert _build.LAUNCHES["batched_recompress"] == 0
+    assert _build.ORACLE_CALLS["batched_recompress"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,p,shared", [(3, 256, 256, True), (4, 256, 32, True),
+                                          (2, 100, 13, False)])
+def test_trsm_panels_kernel_matches_plain_on_card(cuda_device, b, c, p, shared):
+    from repro_torch.kernels.batched_trsm_lowrank.ops import batched_trsm_panels
+    from repro_torch.kernels.batched_trsm_lowrank.ref import batched_trsm_panels_ref
+    a = torch.from_numpy(_spd(_rs(c + p), 1 if shared else b, c)).to(cuda_device)
+    lmat = batched_block_cholesky(a)
+    x = torch.from_numpy(_rs(c).randn(b, c, p).astype(np.float32)).to(cuda_device)
+    y = batched_trsm_panels(lmat, x)
+    assert _rel(y, batched_trsm_panels_ref(lmat, x)) <= 1e-4
+    assert _rel(torch.linalg.solve_triangular(lmat, x, upper=False), y) <= 1e-4
+    assert torch.equal(y, batched_trsm_panels(lmat, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n,p", [(3, 256, 256, 256), (5, 256, 256, 32), (2, 100, 70, 9)])
+def test_schur_dense_kernel_matches_plain_on_card(cuda_device, b, m, n, p):
+    from repro_torch.kernels.batched_schur_update.ops import batched_schur_dense
+    from repro_torch.kernels.batched_schur_update.ref import batched_schur_dense_ref
+    g = torch.Generator(device="cpu").manual_seed(m + n + p)
+    c = torch.randn(b, m, n, generator=g).to(cuda_device)
+    a = torch.randn(b, m, p, generator=g).to(cuda_device)
+    bb = torch.randn(b, n, p, generator=g).to(cuda_device)
+    y = batched_schur_dense(c, a, bb)
+    assert _rel(y, batched_schur_dense_ref(c, a, bb)) <= 1e-5
+    assert torch.equal(y, batched_schur_dense(c, a, bb))
+
+
+@pytest.mark.cuda
+def test_memory_tier_and_hlu_on_card_match_the_cpu_port(cuda_device):
+    """Recompression, spill / reload and the H-LU preconditioned solve on the
+    card (kernels) against the same on the CPU (plain versions)."""
+    from repro_torch.core import build_hmatrix, halton, make_apply
+    from repro_torch.harith import factorize_hlu
+    from repro_torch.solve import make_solver
+    pts = halton(2000, 2) * 4.0
+    x = torch.from_numpy(_rs(9).randn(2000, 4).astype(np.float32))
+    flat = build_hmatrix(pts, "gaussian", k=16, c_leaf=128, precompute=True)
+    hm = build_hmatrix(pts, "gaussian", k=16, c_leaf=128, precompute=True,
+                       recompress_tol=1e-2)
+    z = make_apply(hm)(x.to(cuda_device))
+    assert _rel(z, make_apply(flat)(x.to(cuda_device))) <= 5e-2
+    hm.factors.spill()
+    with pytest.raises(RuntimeError, match="spilled"):
+        make_apply(hm)(x.to(cuda_device))
+    hm.factors.reload()
+    assert torch.equal(make_apply(hm)(x.to(cuda_device)), z)
+
+    hm_cpu = build_hmatrix(pts, "gaussian", k=16, c_leaf=128, precompute=True, device="cpu")
+    _build.reset_launches()
+    f_gpu = factorize_hlu(flat, 1e-2, tol=1e-3)
+    for name in ("batched_block_cholesky", "batched_trsm_panels", "batched_schur_dense",
+                 "batched_recompress"):
+        assert _build.LAUNCHES[name] > 0, name
+    f_cpu = factorize_hlu(hm_cpu, 1e-2, tol=1e-3)
+    # two truncation algorithms at tol = 1e-3 (Gram + Jacobi on the card, QR +
+    # SVD on the CPU): their tiles part by about tol times the tiles' scale
+    assert bool(torch.isfinite(f_gpu.dense).all()) and bool(torch.isfinite(f_gpu.ulr).all())
+    assert (f_gpu.dense.cpu() - f_cpu.dense).abs().max() <= 1e-3
+    prod = (f_gpu.ulr @ f_gpu.vlr.transpose(1, 2)).cpu()
+    assert (prod - f_cpu.ulr @ f_cpu.vlr.transpose(1, 2)).abs().max() <= 1e-3
+    f_again = factorize_hlu(flat, 1e-2, tol=1e-3)
+    assert torch.equal(f_again.dense, f_gpu.dense) and torch.equal(f_again.ulr, f_gpu.ulr)
+    c_gpu, info_gpu = make_solver(flat, 1e-2, tol=1e-5, precond="hlu")(x.to(cuda_device))
+    c_cpu, info_cpu = make_solver(hm_cpu, 1e-2, tol=1e-5, precond="hlu")(x)
+    assert info_gpu.converged and info_cpu.converged
+    assert np.abs(info_gpu.iters_per_column - info_cpu.iters_per_column).max() <= 2
+    # at sigma2 = 1e-2 the solutions' entries reach ~1e2 against targets of
+    # ~1: a fresh fp32 apply of them rounds at eps |A| |c| / |x| (~2e-3 at
+    # most), and the two devices' operators (their ACA factors differ in
+    # rounding) part in the solution by the system's conditioning
+    xg = x.to(cuda_device)
+    assert _rel(make_apply(flat)(c_gpu) + 1e-2 * c_gpu, xg) <= 1e-3
+    assert _rel(c_gpu.cpu(), c_cpu) <= 1e-2

@@ -120,7 +120,12 @@ def test_apply_operand_checks_and_empty_panel():
     assert torch.equal(z1, z2)
     with pytest.raises(NotImplementedError):
         make_apply(hm, mesh=object())
-    with pytest.raises(NotImplementedError):
-        build_hmatrix(pts, device="cpu", precompute=True, recompress_tol=1e-2)
+    # recompression at build time: a smaller store whose apply stays within
+    # 5 tol of the flat one (tests/test_factor_store.py's bound)
+    hm_rc = build_hmatrix(pts, device="cpu", precompute=True, recompress_tol=1e-2, k=8,
+                          c_leaf=64)
+    flat = build_hmatrix(pts, device="cpu", precompute=True, k=8, c_leaf=64)
+    assert hm_rc.memory_report()["factor_bytes"] <= flat.memory_report()["factor_bytes"]
+    assert rel_err(make_apply(hm_rc)(x).numpy(), make_apply(flat)(x).numpy()) <= 5e-2
     report = hm.memory_report()
     assert report["factor_bytes"] > 0 and report["dense_equivalent_bytes"] == 300 * 300 * 4

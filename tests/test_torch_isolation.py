@@ -27,6 +27,13 @@ from repro_torch.kernels.batched_block_solve.ops import (batched_block_cholesky,
 from repro_torch.kernels.batched_dense_matvec import kernel as dense_kernel
 from repro_torch.kernels.batched_dense_matvec.ops import (batched_kernel_matmat,
                                                           batched_kernel_matvec)
+from repro_torch.kernels.batched_recompress import kernel as recompress_kernel
+from repro_torch.kernels.batched_recompress.ops import batched_recompress
+from repro_torch.kernels.batched_schur_update import kernel as schur_kernel
+from repro_torch.kernels.batched_schur_update.ops import (batched_schur_dense,
+                                                          batched_schur_retruncate)
+from repro_torch.kernels.batched_trsm_lowrank import kernel as trsm_kernel
+from repro_torch.kernels.batched_trsm_lowrank.ops import batched_trsm_panels
 from repro_torch.kernels.morton import kernel as morton_kernel
 from repro_torch.kernels.morton.ops import morton_encode
 
@@ -88,6 +95,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         build_hmatrix_device(pts)
     with pytest.raises(RuntimeError, match="CUDA"):
         dense_matvec_oracle(pts, "gaussian", torch.ones(64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_hmatrix(pts, precompute=True, recompress_tol=1e-2)
 
 
 def _meta(*shape):
@@ -112,6 +121,14 @@ def test_dispatchers_send_non_cpu_tensors_to_the_kernel_and_raise():
         batched_block_cholesky(_meta(2, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         batched_block_cholesky_solve(_meta(2, 8, 8), _meta(2, 8, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_recompress(_meta(2, 8, 4), _meta(2, 8, 4), 1e-2)
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_trsm_panels(_meta(1, 8, 8), _meta(2, 8, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_schur_dense(_meta(2, 8, 8), _meta(2, 8, 3), _meta(2, 8, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_schur_retruncate(_meta(2, 8, 8), _meta(2, 8, 8), 1e-2, 4)
     with pytest.raises(ValueError, match="several devices"):
         batched_block_cholesky_solve(torch.zeros(2, 8, 8), _meta(2, 8, 1))
 
@@ -134,7 +151,15 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         solve_kernel.batched_block_cholesky_cuda(torch.zeros(2, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         solve_kernel.batched_block_cholesky_solve_cuda(torch.zeros(2, 8, 8), x)
+    with pytest.raises(ValueError, match="CUDA"):
+        recompress_kernel.batched_recompress_cuda(torch.zeros(2, 8, 4), torch.zeros(2, 8, 4),
+                                                  1e-2)
+    with pytest.raises(ValueError, match="CUDA"):
+        trsm_kernel.batched_trsm_panels_cuda(torch.zeros(1, 8, 8), x)
+    with pytest.raises(ValueError, match="CUDA"):
+        schur_kernel.batched_schur_dense_cuda(torch.zeros(2, 8, 8), x, x)
     assert all(count == 0 for count in _build.LAUNCHES.values())
+    assert all(count == 0 for count in _build.ORACLE_CALLS.values())
 
 
 def test_cuda_requests_fail_loudly_without_a_card():

@@ -84,8 +84,11 @@ def test_solver_contract_vector_frozen_column_and_options():
         solve(np.zeros(513, np.float32))
     with pytest.raises(ValueError):
         make_solver(hm, 1e-2, precond="ilu")
-    with pytest.raises(NotImplementedError):
-        make_solver(hm, 1e-2, precond="hlu")
+    # precond="hlu" is ported: an H-LU preconditioned solve of the same system
+    solve_hlu = make_solver(hm, 0.5, tol=1e-6, max_iter=300, precond="hlu")
+    c_hlu, info_hlu = solve_hlu(f)
+    assert info_hlu.converged and solve_hlu.preconditioner is not None
+    torch.testing.assert_close(c_hlu, c, rtol=1e-3, atol=1e-4)
     with pytest.raises(NotImplementedError):
         make_solver(hm, 1e-2, mesh=object())
 
