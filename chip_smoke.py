@@ -13,9 +13,11 @@ Phases (any failure ends the run with a non-zero exit code):
      square; the recompression on all level groups of P's store, on wide
      (8192, 256, 64) panels with a geometric sigma decay and on all-zero
      blocks; the panel triangular solve and the dense Schur update at H-LU's
-     batch shapes), with times of kernel, plain version and the PyTorch
-     library call that computes the same function (the ACA also on all
-     level groups of P, as one build runs it);
+     batch shapes; the H-attention near field at the serving shape (80, 16,
+     512, 128) and at one prefill_32k layer (40, 64, 512, 128)), with times
+     of kernel, plain version and the PyTorch library call that computes the
+     same function (the ACA also on all level groups of P, as one build runs
+     it);
   2. problem P, the paper's model problem (N = 2^20 Halton points on the
      unit square, gaussian, k = 16, c_leaf = 2048, eta = 1.5, P mode):
      build, apply to an (N, 8) panel and an (N,) vector, 512 sampled rows
@@ -45,9 +47,21 @@ Phases (any failure ends the run with a non-zero exit code):
      (tile grid, steps, runs, ranks, bytes), setup split into the FACTOR,
      TRSM, SCHUR and re-truncation kernels' shares, ms per iteration; then
      the same factorization through the plain versions on the card, held
-     buffer by buffer to the kernel path's.
+     buffer by buffer to the kernel path's;
+  8. LM serving: qwen2.5-14b-hmatrix at full width and depth (48 layers,
+     bf16, random from a generator seeded on the card), one batch of 2
+     prompts of 8,192 tokens, prefill and 15 greedy decode steps through
+     ``repro_torch.launch.serve.generate``; #11 launched once per layer of
+     each prefill, finite logits, a second prefill bit-identical; then,
+     outside the count, one prefill and one decode step under
+     ``torch.profiler`` (kernel time by name, device idle share), #11 on
+     layer 0's real q, k, v against its plain version, and a 2-layer
+     full-width fp32 model through the kernel and through the plain near
+     field on the card (logits within 1e-3, layer 0's h_attention within
+     1e-4 relative), and its rows below 2 c_leaf against exact causal
+     attention (1e-4).
 
-Kernel launch counts are set to 0 before each of phases 2 to 7 and read
+Kernel launch counts are set to 0 before each of phases 2 to 8 and read
 after it: each phase must have launched the kernels of its own path
 (``PATH_KERNELS``), and every kernel must have run on the main path.  The
 last lines are a ``{"kernels": [...]}`` JSON line, the card's name and power
@@ -57,6 +71,7 @@ limit, and ``{"ok": true, "device": {...}}``.  A detailed record goes to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -111,6 +126,8 @@ KERNELS = {
                             "src/repro/kernels/batched_trsm_lowrank/kernel.py:63"),
     "batched_schur_dense": ("src/repro_torch/csrc/schur_dense.cu",
                             "src/repro/kernels/batched_schur_update/kernel.py:48"),
+    "hattention_nearfield": ("src/repro_torch/csrc/hattention_nearfield.cu",
+                             "src/repro/kernels/hattention_block/kernel.py:74"),
 }
 # the kernels each main-path phase must launch itself
 PATH_KERNELS = {
@@ -125,6 +142,7 @@ PATH_KERNELS = {
     "memory_tier": ("batched_recompress", "batched_lowrank_matmat", "morton_encode"),
     "hlu": ("batched_block_cholesky", "batched_recompress", "batched_trsm_panels",
             "batched_schur_dense", "batched_kernel_matmat", "batched_lowrank_matmat"),
+    "lm_serve": ("hattention_nearfield",),
 }
 P_BUILD = dict(kernel="gaussian", k=16, c_leaf=2048, eta=1.5)
 K_BUILD = dict(kernel="gaussian", k=16, c_leaf=256, eta=1.5)
@@ -716,6 +734,92 @@ def check_schur(rng, record):
         "timed_shape": "(512, 256, 256, p=256) + (4096, 256, 256, p=32) (sum of the two)"}
 
 
+# H-attention near field (#11): the serving shape (2 prompts x 40 heads, 16
+# leaves of 512) and one layer of prefill_32k (40 heads, 64 leaves)
+NEARFIELD_SHAPES = {"serve": (80, 16, 512, 128), "prefill_32k_layer": (40, 64, 512, 128)}
+NEARFIELD_M_LIMIT, NEARFIELD_REL_LIMIT = 1e-5, 1e-4
+
+
+def nearfield_work(bh: int, nl: int, c: int, d: int) -> tuple[float, float]:
+    """(bytes, flops) the near field needs: q, k, v read once, num, den and m
+    written once; 2 c^2 D flops for leaf 0's causal half-block products,
+    6 c^2 D for each later leaf (the previous block in full)."""
+    nbytes = 4.0 * bh * nl * c * (4 * d + 2)
+    flops = float(bh) * c * c * d * (2 + 6 * (nl - 1))
+    return nbytes, flops
+
+
+def check_nearfield_inputs(q, k, v, label: str) -> dict:
+    """#11 against its plain version on the card on one set of inputs."""
+    from repro_torch.kernels.hattention_block.kernel import hattention_nearfield_cuda
+    from repro_torch.kernels.hattention_block.ref import hattention_nearfield_ref
+    num, den, m = hattention_nearfield_cuda(q, k, v)
+    num_r, den_r, m_r = hattention_nearfield_ref(q, k, v)
+    torch.cuda.synchronize()
+    ch = {"inputs": label, "shape": list(q.shape), "m_max_abs_err": max_abs(m, m_r),
+          "num_rel_err": rel_err(num, num_r), "den_rel_err": rel_err(den, den_r),
+          "max_abs_err": max_abs(num, num_r)}
+    del num_r, den_r, m_r
+    again = hattention_nearfield_cuda(q, k, v)
+    ch["bit_identical"] = all(torch.equal(a, b) for a, b in zip(again, (num, den, m)))
+    log(f"[1] hattention_nearfield {label} {tuple(q.shape)}: m max abs err "
+        f"{ch['m_max_abs_err']:.3e}, num rel err {ch['num_rel_err']:.3e}, den rel err "
+        f"{ch['den_rel_err']:.3e}, max abs err of num {ch['max_abs_err']:.3e}, "
+        f"bit-identical {ch['bit_identical']}")
+    require(ch["m_max_abs_err"] <= NEARFIELD_M_LIMIT and ch["num_rel_err"] <= NEARFIELD_REL_LIMIT
+            and ch["den_rel_err"] <= NEARFIELD_REL_LIMIT,
+            f"hattention_nearfield {label}: {ch}")
+    require(ch["bit_identical"], f"hattention_nearfield {label}: two launches differ")
+    return ch
+
+
+def sdpa_band(q, k, v):
+    """The band of the near field as one ``scaled_dot_product_attention``
+    call over (c, 2c) key windows [leaf i-1 | leaf i] with a boolean mask
+    (previous leaf visible, own leaf causal).  A timing note only: leaf 0
+    sees zero keys in its window, and SDPA returns normalised rows, not
+    (num, den, m)."""
+    import torch.nn.functional as F
+    c = q.shape[2]
+    kk = torch.cat([torch.cat([torch.zeros_like(k[:, :1]), k[:, :-1]], 1), k], 2)
+    vv = torch.cat([torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], 1), v], 2)
+    ii = torch.arange(c, device=q.device)
+    mask = torch.cat([torch.ones(c, c, dtype=torch.bool, device=q.device),
+                      ii[:, None] >= ii[None, :]], 1)
+    return lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask, scale=1.0)
+
+
+def check_nearfield(record):
+    """#11 on random q, k, v scaled as in tests/test_hattention_kernel.py, at
+    the serving shape (timed, with the plain version and the SDPA note) and
+    at one prefill_32k layer (timed)."""
+    from repro_torch.kernels.hattention_block.kernel import hattention_nearfield_cuda
+    from repro_torch.kernels.hattention_block.ref import hattention_nearfield_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rec = record.setdefault("hattention_nearfield", {"checks": []})
+    for label, (bh, nl, c, d) in NEARFIELD_SHAPES.items():
+        q = torch.randn(bh, nl, c, d, generator=gen, device="cuda") / math.sqrt(d)
+        k = torch.randn(bh, nl, c, d, generator=gen, device="cuda")
+        v = torch.randn(bh, nl, c, d, generator=gen, device="cuda")
+        rec["checks"].append(check_nearfield_inputs(q, k, v, f"random, {label}"))
+        nbytes, flops = nearfield_work(bh, nl, c, d)
+        bms, by = bound_ms(nbytes, flops)
+        ms = gpu_ms(lambda: hattention_nearfield_cuda(q, k, v), 5)
+        rec[f"{label}_ms"], rec[f"{label}_bound_ms"], rec[f"{label}_gflop"] = ms, bms, flops / 1e9
+        if label == "serve":
+            rec.update(ms=ms, bound_ms=bms, bound_by=by, library_ms=None,
+                       plain_ms=gpu_ms(lambda: hattention_nearfield_ref(q, k, v), 2),
+                       sdpa_note_ms=gpu_ms(sdpa_band(q, k, v), 5),
+                       timed_shape=f"serve {(bh, nl, c, d)}")
+        log(f"[1] hattention_nearfield {label} {(bh, nl, c, d)}: {ms:.3f} ms, bound {bms:.3f} "
+            f"ms ({by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.2f} GB)")
+        del q, k, v
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = max(ch["max_abs_err"] for ch in rec["checks"])
+    log(f"[1] hattention_nearfield serve: plain {rec['plain_ms']:.3f} ms; SDPA on the same "
+        f"band (note, not a library equivalent) {rec['sdpa_note_ms']:.3f} ms")
+
+
 # ---------------------------------------------------------------------------
 # phases 2 and 3: the main path
 # ---------------------------------------------------------------------------
@@ -1152,10 +1256,207 @@ def run_hlu_measurements(hm, pre, f, rng, out):
         f"{res['tf32_control']['within_limits']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: LM serving (qwen2.5-14b-hmatrix)
+# ---------------------------------------------------------------------------
+
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_TOKENS = "qwen2.5-14b-hmatrix", 2, 8192, 16
+LM_PARAMS = 14_770_033_664
+LM_LOGITS_LIMIT, LM_HATT_LIMIT, LM_EXACT_LIMIT = 1e-3, 1e-4, 1e-4
+
+
+@contextlib.contextmanager
+def plain_nearfield():
+    """Within the block, ``h_attention``'s near field runs its plain version
+    on the card (``kernels/hattention_block/ref.py``) instead of #11."""
+    from repro_torch.core import hattention
+    from repro_torch.kernels.hattention_block.ref import hattention_nearfield_ref
+    orig = hattention.hattention_nearfield_op
+    hattention.hattention_nearfield_op = hattention_nearfield_ref
+    try:
+        yield
+    finally:
+        hattention.hattention_nearfield_op = orig
+
+
+def layer0_qkv(params, cfg, prompts):
+    """Layer 0's q, k, v (after RoPE) for ``prompts``, as attention_block forms them."""
+    from repro_torch.models.layers import _proj_qkv, apply_norm, apply_rope, embed_tokens
+    with torch.inference_mode():
+        x = embed_tokens(params.embed, prompts)
+        h = apply_norm(cfg.norm_type, params.layers[0].ln1, x)
+        q, k, v = _proj_qkv(params.layers[0].attn, cfg, h)
+        pos = torch.arange(prompts.shape[1], device=prompts.device)
+        return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
+
+
+def exact_causal_attention(q, k, v):
+    """Plain fp32 causal softmax attention with grouped KV heads."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qf = q.float().reshape(b, s, hkv, h // hkv, d) / math.sqrt(d)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    mask = torch.tril(torch.ones(s, s, dtype=torch.bool, device=q.device))
+    p = torch.softmax(torch.where(mask, sc, torch.full_like(sc, -1e30)), dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+def run_lm_serve(out):
+    """The main path of phase 8: the 48-layer model serves one batch.  Returns
+    the model and prompts for the checks after the launch count."""
+    from repro_torch import _build
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import count_params, get_model
+    from repro_torch.serve.step import make_prefill_step
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params, t_init = wall_s(lambda: model["init_params"](gen))
+    n_params = count_params(params)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen,
+                            device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    res = generate(params, cfg, prompts, LM_TOKENS)
+    launches_first = _build.LAUNCHES["hattention_nearfield"]
+    (logits2, caches2), t_prefill2 = wall_s(lambda: make_prefill_step(cfg)(params, prompts))
+    launches_both = _build.LAUNCHES["hattention_nearfield"]
+    identical = bool(torch.equal(logits2, res["prefill_logits"])) and all(
+        torch.equal(k2, k[:, :LM_PROMPT]) and torch.equal(v2, v[:, :LM_PROMPT])
+        for (k2, v2), (k, v) in zip(caches2, res["caches"]))
+    finite = bool(torch.isfinite(res["prefill_logits"]).all() and torch.isfinite(logits2).all()
+                  and torch.isfinite(res["logits"]).all())
+    tokens = res["tokens"]
+    n_tok = LM_BATCH * LM_PROMPT
+    cache_bytes = sum(k.numel() * k.element_size() * 2 for k, _ in res["caches"])
+    rec = {"arch": LM_ARCH, "layers": cfg.n_layers, "params": n_params, "dtype": cfg.dtype,
+           "batch": LM_BATCH, "prompt_len": LM_PROMPT, "tokens_generated": LM_TOKENS,
+           "init_s": t_init, "prefill_s_first": res["prefill_s"], "prefill_s": t_prefill2,
+           "prefill_tok_per_s": n_tok / t_prefill2,
+           "prefill_tok_per_s_first": n_tok / res["prefill_s"],
+           "decode_ms_per_step": res["decode_s"] / (LM_TOKENS - 1) * 1e3,
+           "nearfield_launches_first_prefill": launches_first,
+           "nearfield_launches_two_prefills": launches_both,
+           "prefills_bit_identical": identical, "logits_finite": finite,
+           "kv_cache_bytes": cache_bytes,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "first_row_tokens": tokens[0].tolist()}
+    out["lm_serve"] = rec
+    log(f"[lm] {LM_ARCH}: {n_params:,} parameters ({cfg.n_layers} layers, {cfg.dtype}) made in "
+        f"{t_init:.2f} s; prefill {LM_BATCH} x {LM_PROMPT}: first {res['prefill_s']:.3f} s, "
+        f"again {t_prefill2:.3f} s ({rec['prefill_tok_per_s']:.0f} tok/s); decode "
+        f"{rec['decode_ms_per_step']:.2f} ms per step; #11 launches {launches_first} then "
+        f"{launches_both}; prefills bit-identical {identical}; logits finite {finite}; KV "
+        f"cache {cache_bytes / 1e9:.2f} GB; peak {rec['peak_memory_gib']:.2f} GiB")
+    log(f"[lm] generated (first row): {rec['first_row_tokens']}")
+    require(n_params == LM_PARAMS, f"lm: {n_params} parameters, expected {LM_PARAMS}")
+    require(launches_first == cfg.n_layers and launches_both == 2 * cfg.n_layers,
+            f"lm: #11 launched {launches_first} / {launches_both} times, expected one per "
+            f"layer of each prefill ({cfg.n_layers})")
+    require(finite, "lm: non-finite logits")
+    require(identical, "lm: two prefills differ")
+    require(tokens.shape == (LM_BATCH, LM_TOKENS) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size, f"lm: bad tokens {tuple(tokens.shape)}")
+    rec["main_path_s"] = time.perf_counter() - t_phase
+    return {"params": params, "cfg": cfg, "prompts": prompts, "t_phase": t_phase}
+
+
+def device_profile(fn, top: int = 12) -> dict:
+    """``fn()`` under ``torch.profiler``: host seconds (ending in a sync),
+    the summed device time of every kernel, the device's idle share of the
+    host time, and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, secs = wall_s(fn)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    total_ms = sum(e.device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: -e.device_time_total)
+    return {"host_s": secs, "device_ms": total_ms, "kernel_launches": sum(e.count for e in kernels),
+            "idle_share": max(0.0, 1.0 - total_ms / 1e3 / secs),
+            "top": [{"name": e.key[:120], "ms": e.device_time_total / 1e3,
+                     "calls": e.count} for e in kernels[:top]]}
+
+
+def profile_lm(params, cfg, prompts, rec):
+    """One prefill and one decode step of the 48-layer model under the
+    profiler (outside the counted run)."""
+    from repro_torch.launch.serve import grow_caches
+    from repro_torch.serve.step import greedy_sample, make_decode_step, make_prefill_step
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    out = {}
+    rec["profile"] = {"prefill": device_profile(lambda: out.update(
+        zip(("logits", "caches"), prefill(params, prompts))))}
+    caches = grow_caches(out.pop("caches"), 2)
+    tok = greedy_sample(out.pop("logits"), cfg.vocab_size)
+    decode(params, tok, caches, LM_PROMPT)
+    rec["profile"]["decode_step"] = device_profile(
+        lambda: decode(params, tok, caches, LM_PROMPT + 1))
+    for name, prof in rec["profile"].items():
+        log(f"[lm profile] {name}: host {prof['host_s'] * 1e3:.2f} ms, "
+            f"{prof['kernel_launches']} kernels {prof['device_ms']:.2f} ms, device idle "
+            f"{prof['idle_share']:.3f}")
+        for k in prof["top"]:
+            log(f"[lm profile]   {k['ms']:10.3f} ms  {k['calls']:6d}x  {k['name']}")
+
+
+def run_lm_checks(state: dict, record):
+    """After the launch count: #11 on layer 0's real q, k, v against its
+    plain version, then the 2-layer full-width fp32 model through the kernel
+    and through the plain near field, and against exact attention.  Takes
+    the 48-layer model out of ``state`` and frees it first."""
+    from repro_torch.core.hattention import h_attention, leaf_blocks
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.step import make_prefill_step
+    rec = record["lm_serve"]
+    params, cfg, prompts = state.pop("params"), state["cfg"], state["prompts"]
+    profile_lm(params, cfg, prompts, rec)
+    q, k, v = layer0_qkv(params, cfg, prompts)
+    _, _, _, ql, kl, vl = leaf_blocks(q, k, v, cfg.h_c_leaf)
+    nf = record["kernels"].setdefault("hattention_nearfield", {"checks": []})
+    nf["checks"].append(check_nearfield_inputs(ql, kl, vl, "layer 0 of the 48-layer model"))
+    nf["max_abs_err"] = max(ch["max_abs_err"] for ch in nf["checks"])
+    del params, q, k, v, ql, kl, vl
+    torch.cuda.empty_cache()
+
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    params2 = get_model(cfg2)["init_params"](torch.Generator(device="cuda").manual_seed(SEED))
+    prefill = make_prefill_step(cfg2)
+    logits_k, _ = prefill(params2, prompts)
+    q, k, v = layer0_qkv(params2, cfg2, prompts)
+    with torch.inference_mode():
+        att_k = h_attention(q, k, v, c_leaf=cfg2.h_c_leaf, rank=cfg2.h_rank)
+        with plain_nearfield():
+            logits_p, _ = prefill(params2, prompts)
+            att_p = h_attention(q, k, v, c_leaf=cfg2.h_c_leaf, rank=cfg2.h_rank)
+        n_ex = 2 * cfg2.h_c_leaf
+        exact = exact_causal_attention(q[:, :n_ex], k[:, :n_ex], v[:, :n_ex])
+    fp32 = {"logits_rel_err": rel_err(logits_k, logits_p),
+            "h_attention_rel_err": rel_err(att_k, att_p),
+            "exact_rows": n_ex, "exact_max_abs_err": max_abs(att_k[:, :n_ex], exact),
+            "exact_max_abs_err_plain": max_abs(att_p[:, :n_ex], exact),
+            "logits_finite": bool(torch.isfinite(logits_k).all())}
+    rec["fp32_2_layers"] = fp32
+    log(f"[lm fp32, 2 layers] kernel vs plain near field: last-position logits rel err "
+        f"{fp32['logits_rel_err']:.3e} (limit {LM_LOGITS_LIMIT}), layer-0 h_attention rel err "
+        f"{fp32['h_attention_rel_err']:.3e} (limit {LM_HATT_LIMIT}); rows < {n_ex} against "
+        f"exact attention: max abs err {fp32['exact_max_abs_err']:.3e} (plain route "
+        f"{fp32['exact_max_abs_err_plain']:.3e}, limit {LM_EXACT_LIMIT})")
+    require(fp32["logits_finite"], "lm fp32: non-finite logits")
+    require(fp32["logits_rel_err"] <= LM_LOGITS_LIMIT and fp32["h_attention_rel_err"] <= LM_HATT_LIMIT,
+            f"lm fp32: kernel and plain routes differ: {fp32}")
+    require(fp32["exact_max_abs_err"] <= LM_EXACT_LIMIT,
+            f"lm fp32: rows below 2 c_leaf differ from exact attention: {fp32}")
+    rec["phase_s"] = time.perf_counter() - state["t_phase"]
+    log(f"[lm] phase 8 wall {rec['phase_s']:.1f} s (main path {rec['main_path_s']:.1f} s)")
+
+
 def main(record: dict) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="01234567",
-                        help="phases to run (default all: 01234567); 0 is always run")
+    parser.add_argument("--phases", default="012345678",
+                        help="phases to run (default all: 012345678); 0 is always run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -1169,6 +1470,9 @@ def main(record: dict) -> int:
     require(torch.get_float32_matmul_precision() == "highest",
             "fp32 matmul precision must be 'highest'")
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul must stay off")
+    # the LM's bf16 products accumulate in fp32, as the reference's XLA programs do
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     info = _build.build_all()
     log(f"[0] kernels built in {info['seconds']:.1f} s into {info['dir']}")
     for name, rep in info["ptxas"].items():
@@ -1196,6 +1500,7 @@ def main(record: dict) -> int:
         check_recompress(hm_p, rng, record["kernels"])
         check_trsm(hm_k, rng, record["kernels"])
         check_schur(rng, record["kernels"])
+        check_nearfield(record["kernels"])
         for name, rec in record["kernels"].items():
             log(f"[1] {name}: max abs err {rec['max_abs_err']:.3e}, kernel {rec['ms']:.3f} ms, "
                 f"plain {rec['plain_ms']:.3f} ms, library {rec['library_ms']}, bound "
@@ -1256,8 +1561,9 @@ def main(record: dict) -> int:
         allowed = run_problem_k_plain(hm_k, f, c_kern, iters_kern, record)
     del hm_k
     torch.cuda.empty_cache()
-    pts_p = points_p() if pts_p is None else pts_p
-    pts_k = points_k() if pts_k is None else pts_k
+    if set(args.phases) & set("4567"):
+        pts_p = points_p() if pts_p is None else pts_p
+        pts_k = points_k() if pts_k is None else pts_k
     if "4" in args.phases:
         # PyTorch loads a kernel's module at its first use: a small device
         # build first, so that the stage times below are those of a warm process
@@ -1286,7 +1592,16 @@ def main(record: dict) -> int:
         count_launches("hlu")
         run_hlu_measurements(hm_hlu, pre, f_k, rng, record)
         del hm_hlu, pre
-    if set("234567") <= set(args.phases):
+    if "8" in args.phases:
+        del pts_p, pts_k
+        torch.cuda.empty_cache()
+        _build.reset_launches()
+        lm_state = run_lm_serve(record)
+        count_launches("lm_serve")
+        run_lm_checks(lm_state, record)
+        del lm_state
+        torch.cuda.empty_cache()
+    if set("2345678") <= set(args.phases):
         missing = [name for name, count in launches.items() if count == 0]
         require(not missing, f"kernels never launched on the main path: {missing}")
     record["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30

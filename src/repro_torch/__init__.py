@@ -8,8 +8,10 @@ The main path is the same as the reference's quickstart:
     c, info = make_solver(hm, sigma2)(f)      # block-Jacobi PCG
 
 and beside it the memory tier (``build_hmatrix(..., recompress_tol=)``,
-``core.recompress_store``, ``FactorStore.spill`` / ``reload``) and the H-LU
-preconditioner (``make_solver(hm, sigma2, precond="hlu")``, ``harith``).
+``core.recompress_store``, ``FactorStore.spill`` / ``reload``), the H-LU
+preconditioner (``make_solver(hm, sigma2, precond="hlu")``, ``harith``) and
+LM serving with H-matrix attention (``python -m repro_torch.launch.serve``;
+``models``, ``serve.step``, ``core.hattention``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no CUDA card they raise ``RuntimeError``.  On a

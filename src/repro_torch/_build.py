@@ -26,7 +26,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("dense_matmat", "lowrank_matmat", "block_cholesky", "block_cholesky_solve",
-           "aca", "morton", "recompress", "trsm_panels", "schur_dense")
+           "aca", "morton", "recompress", "trsm_panels", "schur_dense",
+           "hattention_nearfield")
 
 LAUNCHES: dict[str, int] = {
     "batched_kernel_matvec": 0,
@@ -39,6 +40,7 @@ LAUNCHES: dict[str, int] = {
     "batched_recompress": 0,
     "batched_trsm_panels": 0,
     "batched_schur_dense": 0,
+    "hattention_nearfield": 0,
 }
 
 # calls of a documented plain route of the reference that a wrapper takes on

@@ -1,4 +1,6 @@
-"""Build a ``repro_torch`` HMatrix from plain NumPy arrays.
+"""Build ``repro_torch`` objects from plain NumPy arrays.
+
+``hmatrix_from_arrays``: a ``repro_torch`` HMatrix.
 
 The arrays are an export of an H-matrix built elsewhere (for instance by
 the JAX reference), so that both sides apply the SAME tree, plan and
@@ -8,6 +10,9 @@ factors.  Keys of ``arrays`` (``{l}`` is a tree level):
     k, kernel_name (str), bb_min/{l}, bb_max/{l} (2^l, d) f32 for every
     level, dense_blocks (n_dense, 2) int32, aca_levels/{l} (B_l, 2) int32,
     and, for a precomputed H-matrix, U/{l} (B_l, m, k), V/{l} (B_l, m, k) f32.
+
+``lm_params_from_arrays``: the port's ``LM`` from ``repro``'s LM parameter
+pytree (``repro.models.lm.init_params``) as NumPy arrays.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ from .core.clustering import ClusterTree
 from .core.factor_store import FactorStore
 from .core.geometry import get_kernel
 from .core.hmatrix import HMatrix, block_groups
+from .models.layers import MLP, Attention, Norm
+from .models.lm import LM, Block
 
 
 def _levels_of(arrays: dict, prefix: str) -> list[int]:
@@ -55,3 +62,53 @@ def hmatrix_from_arrays(arrays: dict[str, np.ndarray], *, device) -> HMatrix:
     return HMatrix(tree=tree, plan=plan, kernel=get_kernel(kernel_name),
                    kernel_name=kernel_name, k=int(arrays["k"]), factors=factors,
                    groups=block_groups(plan, dev))
+
+
+def _norm(tree: dict, t) -> Norm:
+    return Norm(t(tree["w"]), t(tree["b"]) if "b" in tree else None)
+
+
+def _block(tree: dict, t) -> Block:
+    attn = tree["attn"]
+    mlp = tree.get("mlp")
+    return Block(_norm(tree["ln1"], t),
+                 Attention(*(t(attn[name]) for name in ("wq", "wk", "wv", "wo")),
+                           **{name: t(attn[name]) for name in ("bq", "bk", "bv")
+                              if name in attn}),
+                 _norm(tree["ln2"], t),
+                 None if mlp is None else MLP(t(mlp["wu"]), t(mlp["wd"]),
+                                              wg=t(mlp["wg"]) if "wg" in mlp else None))
+
+
+def lm_params_from_arrays(arrays: dict, cfg, *, device) -> LM:
+    """The port's :class:`LM` holding ``repro``'s LM parameters.
+
+    ``arrays`` is ``repro.models.lm.init_params(key, cfg)`` with every leaf
+    a NumPy array: ``embed``, ``final_norm/w``, ``lm_head`` (untied), and per
+    pattern position ``pattern[pos]`` with the periods stacked on the leading
+    axis (``ln1/w``, ``attn/{wq, wk, wv, wo, bq, bk, bv}``, ``ln2/w``,
+    ``mlp/{wg, wu, wd}``), plus ``tail`` blocks.  Layer ``i`` is period
+    ``i // len(pattern)`` of position ``i % len(pattern)``, then the tail.
+    Tensors keep the arrays' dtype (NumPy has no bfloat16: hand bfloat16
+    parameters over as float32).
+    """
+    dev = torch.device(device)
+    pattern = cfg.block_pattern
+    n_periods = cfg.n_layers // len(pattern)
+    for kind in cfg.layer_kinds:
+        if kind != "dense":
+            raise NotImplementedError(f"block kind {kind!r}: not yet ported to repro_torch")
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def sliced(tree, period):
+        if isinstance(tree, dict):
+            return {key: sliced(val, period) for key, val in tree.items()}
+        return tree[period]
+
+    layers = [_block(sliced(arrays["pattern"][pos], period), t)
+              for period in range(n_periods) for pos in range(len(pattern))]
+    layers += [_block(tree, t) for tree in arrays["tail"]]
+    head = None if cfg.tie_embeddings else t(arrays["lm_head"])
+    return LM(cfg, t(arrays["embed"]), _norm(arrays["final_norm"], t), head, layers)

@@ -1,0 +1,43 @@
+"""Launch wrapper of the CUDA kernel ``csrc/hattention_nearfield.cu``.
+
+Replaces ``repro/kernels/hattention_block/kernel.py``: ``hattention_nearfield``,
+the dense near field of H-matrix attention (``core/hattention.h_attention``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ... import _build
+from .. import require_cuda_f32, stream_handle
+
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def hattention_nearfield_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v: (BH, n_leaf, c, D) float32 CUDA, q pre-scaled, D in
+    ``HEAD_DIMS`` -> num (BH, n_leaf, c, D), den and m (BH, n_leaf, c)."""
+    what = "hattention_nearfield"
+    require_cuda_f32(what, q, k, v)
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} must all be (BH, n_leaf, c, D)")
+    bh, nl, c, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: the kernel takes head dims {HEAD_DIMS}, got {d}")
+    if bh * nl * -(-c // 64) > 2 ** 31 - 1:
+        raise ValueError(f"{what}: {bh} x {nl} leaves of {c} rows exceed the kernel's grid")
+    num = torch.empty_like(q)
+    den = q.new_empty((bh, nl, c))
+    m = q.new_empty((bh, nl, c))
+    if bh == 0 or nl == 0 or c == 0:
+        return num, den, m
+    fn = _build.c_function("hattention_nearfield", "repro_hattention_nearfield",
+                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), num.data_ptr(), den.data_ptr(),
+                 m.data_ptr(), bh, nl, c, d, stream_handle(q.device))
+    _build.check(err, what)
+    _build.LAUNCHES[what] += 1
+    return num, den, m

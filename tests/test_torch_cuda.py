@@ -12,7 +12,10 @@ codes exactly equal, the ACA by the max error of ``U V^T`` against the
 block, within ``max(2 x the plain version's, 1e-4)`` (the two may pick
 other pivots on near-ties), and the recompression (Gram + Jacobi against
 the plain QR + SVD) by equal ranks or a reconstruction error within
-``2 tol`` of each block's Frobenius norm.
+``2 tol`` of each block's Frobenius norm, the H-attention near field by
+``m`` within 1e-5 absolute and ``num``, ``den`` within 1e-4 relative (the
+JAX test's limits), and the LM's prefill through the kernel against the
+same prefill through the plain version on the card within 1e-4 relative.
 """
 import numpy as np
 import pytest
@@ -360,3 +363,46 @@ def test_memory_tier_and_hlu_on_card_match_the_cpu_port(cuda_device):
     xg = x.to(cuda_device)
     assert _rel(make_apply(flat)(c_gpu) + 1e-2 * c_gpu, xg) <= 1e-3
     assert _rel(c_gpu.cpu(), c_cpu) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,nl,c,d", [(2, 4, 64, 32), (1, 8, 128, 16), (3, 2, 32, 64),
+                                       (2, 3, 100, 16), (2, 4, 512, 128)])
+def test_hattention_nearfield_kernel_matches_plain_on_card(cuda_device, bh, nl, c, d):
+    from repro_torch.kernels.hattention_block.ops import hattention_nearfield_op
+    from repro_torch.kernels.hattention_block.ref import hattention_nearfield_ref
+    g = torch.Generator(device="cpu").manual_seed(bh + nl + c + d)
+    q, k, v = (torch.randn(bh, nl, c, d, generator=g).to(cuda_device) for _ in range(3))
+    q = q / d ** 0.5
+    before = _build.LAUNCHES["hattention_nearfield"]
+    num, den, m = hattention_nearfield_op(q, k, v)
+    assert _build.LAUNCHES["hattention_nearfield"] == before + 1
+    num_r, den_r, m_r = hattention_nearfield_ref(q, k, v)
+    assert float((m - m_r).abs().max()) <= 1e-5
+    assert _rel(den, den_r) <= 1e-4 and _rel(num, num_r) <= 1e-4
+    again = hattention_nearfield_op(q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(again, (num, den, m)))     # no atomics
+
+
+@pytest.mark.cuda
+def test_lm_prefill_on_card_matches_the_plain_route(cuda_device, monkeypatch):
+    """The smoke hmatrix LM's prefill through kernel #11 against the same
+    prefill with the near field forced to its plain version on the card,
+    and a greedy decode through both."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.core import hattention
+    from repro_torch.kernels.hattention_block.ref import hattention_nearfield_ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import get_model
+    cfg = get_smoke("qwen2.5-14b-hmatrix").replace(dtype="float32")
+    model = get_model(cfg)
+    params = model["init_params"](torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 512), device=cuda_device,
+                            generator=torch.Generator(device="cuda").manual_seed(1))
+    _build.reset_launches()
+    out = generate(params, cfg, prompts, 4)
+    assert _build.LAUNCHES["hattention_nearfield"] == cfg.n_layers
+    monkeypatch.setattr(hattention, "hattention_nearfield_op", hattention_nearfield_ref)
+    plain = generate(params, cfg, prompts, 4)
+    assert _rel(out["prefill_logits"], plain["prefill_logits"]) <= 1e-4
+    assert torch.equal(out["tokens"], plain["tokens"])

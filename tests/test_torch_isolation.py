@@ -36,6 +36,11 @@ from repro_torch.kernels.batched_trsm_lowrank import kernel as trsm_kernel
 from repro_torch.kernels.batched_trsm_lowrank.ops import batched_trsm_panels
 from repro_torch.kernels.morton import kernel as morton_kernel
 from repro_torch.kernels.morton.ops import morton_encode
+from repro_torch.kernels.hattention_block import kernel as nearfield_kernel
+from repro_torch.kernels.hattention_block.ops import hattention_nearfield_op
+from repro_torch.configs.registry import get_smoke
+from repro_torch.launch import serve as serve_launch
+from repro_torch.models.api import get_model
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -97,6 +102,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         dense_matvec_oracle(pts, "gaussian", torch.ones(64))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_hmatrix(pts, precompute=True, recompress_tol=1e-2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model(get_smoke("qwen2.5-14b-hmatrix"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_launch.main(["--arch", "qwen2.5-14b-hmatrix", "--smoke"])
 
 
 def _meta(*shape):
@@ -129,6 +138,8 @@ def test_dispatchers_send_non_cpu_tensors_to_the_kernel_and_raise():
         batched_schur_dense(_meta(2, 8, 8), _meta(2, 8, 3), _meta(2, 8, 3))
     with pytest.raises(ValueError, match="CUDA"):
         batched_schur_retruncate(_meta(2, 8, 8), _meta(2, 8, 8), 1e-2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        hattention_nearfield_op(_meta(2, 2, 8, 16), _meta(2, 2, 8, 16), _meta(2, 2, 8, 16))
     with pytest.raises(ValueError, match="several devices"):
         batched_block_cholesky_solve(torch.zeros(2, 8, 8), _meta(2, 8, 1))
 
@@ -158,6 +169,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         trsm_kernel.batched_trsm_panels_cuda(torch.zeros(1, 8, 8), x)
     with pytest.raises(ValueError, match="CUDA"):
         schur_kernel.batched_schur_dense_cuda(torch.zeros(2, 8, 8), x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        nearfield_kernel.hattention_nearfield_cuda(*(torch.zeros(2, 2, 8, 16),) * 3)
     assert all(count == 0 for count in _build.LAUNCHES.values())
     assert all(count == 0 for count in _build.ORACLE_CALLS.values())
 
