@@ -13,8 +13,10 @@ Phases (any failure ends the run with a non-zero exit code):
      square; the recompression on all level groups of P's store, on wide
      (8192, 256, 64) panels with a geometric sigma decay and on all-zero
      blocks; the panel triangular solve and the dense Schur update at H-LU's
-     batch shapes; the H-attention near field at the serving shape (80, 16,
-     512, 128) and at one prefill_32k layer (40, 64, 512, 128)), with times
+     largest batch shapes, at B = 1 (their latency floor) and, at each
+     launch width the wrapper can pick, on H-LU's batch sizes; the
+     H-attention near field at the serving shape (80, 16, 512, 128) and at
+     one prefill_32k layer (40, 64, 512, 128)), with times
      of kernel, plain version and the PyTorch library call that computes the
      same function (the ACA also on all level groups of P, as one build runs
      it);
@@ -678,6 +680,95 @@ def k_lower_factor(hm_k) -> torch.Tensor:
     return batched_block_cholesky_cuda(shifted_diagonal(hm_k, 1e-2, 1))
 
 
+# H-LU's batch sizes on K (c = 256): TRSM dense tiles (B, 256, 256) and V
+# panels (B, 256, 32); Schur products with p = 256 and p = 32
+TRSM_SWEEP = ((32, 256), (16, 256), (8, 256), (1, 256),
+              (128, 32), (64, 32), (32, 32), (16, 32), (1, 32))
+SCHUR_SWEEP = ((512, 256), (128, 256), (64, 256), (32, 256), (1, 256),
+               (4096, 32), (256, 32), (32, 32), (1, 32))
+
+
+def sweep_widths(name: str, shapes, variants, make, launch, picked) -> dict:
+    """A kernel at each of its launch widths (``variants``) on each shape,
+    through the C entry point its wrapper calls, with the width given
+    instead of chosen: device ms per width, the wrapper's pick and the
+    fastest.  Every width must give the wrapper's bits."""
+    from repro_torch import _build
+    out = {}
+    for shape in shapes:
+        args, want = make(shape)
+        row = {"picked": picked(shape), "ms": {}}
+        for w in variants:
+            y = torch.empty_like(want)
+            def run(w=w, y=y):
+                _build.check(launch(args, y, w), f"{name} at width {w}")
+            run()
+            require(torch.equal(y, want), f"{name} {shape}: width {w} differs from the wrapper")
+            row["ms"][w] = gpu_ms(run, 20)
+        row["fastest"] = min(row["ms"], key=row["ms"].get)
+        out[str(shape)] = row
+        del args, want
+    return out
+
+
+def sweep_trsm(lmat: torch.Tensor, gen: torch.Generator) -> dict:
+    """#9 at every chunk width on H-LU's TRSM batch sizes (one L_tt)."""
+    import ctypes
+    from repro_torch import _build
+    from repro_torch.kernels import sm_count, stream_handle
+    from repro_torch.kernels.batched_trsm_lowrank.kernel import (
+        CHUNK_COLS, batched_trsm_panels_cuda, chunk_cols)
+    fn = _build.c_function("trsm_panels", "repro_trsm_panels",
+                           [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                            ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    smem = _build.c_function("trsm_panels", "repro_trsm_smem_bytes", [ctypes.c_int] * 2,
+                             ctypes.c_longlong)
+    c, sms = lmat.shape[1], sm_count(lmat.device)
+
+    def make(shape):
+        x = torch.randn(*shape, device="cuda", generator=gen)
+        return x, batched_trsm_panels_cuda(lmat, x)
+
+    def launch(x, y, rc):
+        return fn(lmat.data_ptr(), 0, x.data_ptr(), y.data_ptr(), x.shape[0], c, x.shape[2], rc,
+                  stream_handle(x.device))
+
+    shapes = [(b, c, p) for b, p in TRSM_SWEEP]
+    return {"smem_bytes": {rc: smem(c, rc) for rc in CHUNK_COLS},
+            "by_shape": sweep_widths("batched_trsm_panels", shapes, CHUNK_COLS, make, launch,
+                                     lambda s: chunk_cols(*s, sms))}
+
+
+def sweep_schur(gen: torch.Generator) -> dict:
+    """#10 at both CTA tiles on H-LU's Schur batch sizes (m = n = 256)."""
+    import ctypes
+    from repro_torch import _build
+    from repro_torch.kernels import sm_count, stream_handle
+    from repro_torch.kernels.batched_schur_update.kernel import (
+        SCHUR_TILES, batched_schur_dense_cuda, schur_tile)
+    fn = _build.c_function("schur_dense", "repro_schur_dense",
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    smem = _build.c_function("schur_dense", "repro_schur_smem_bytes", [ctypes.c_int],
+                             ctypes.c_longlong)
+    sms = sm_count(torch.device("cuda", torch.cuda.current_device()))
+
+    def make(shape):
+        b, p = shape[0], shape[3]
+        cc, a, bb = (torch.randn(b, r, q, device="cuda", generator=gen)
+                     for r, q in ((256, 256), (256, p), (256, p)))
+        return (cc, a, bb), batched_schur_dense_cuda(cc, a, bb)
+
+    def launch(args, y, tile):
+        cc, a, bb = args
+        return fn(cc.data_ptr(), a.data_ptr(), bb.data_ptr(), y.data_ptr(), cc.shape[0], 256,
+                  256, a.shape[2], tile, stream_handle(cc.device))
+
+    shapes = [(b, 256, 256, p) for b, p in SCHUR_SWEEP]
+    return {"smem_bytes": {t: smem(t) for t in SCHUR_TILES},
+            "by_shape": sweep_widths("batched_schur_dense", shapes, SCHUR_TILES, make, launch,
+                                     lambda s: schur_tile(s[0], s[1], s[2], sms))}
+
+
 def check_trsm(hm_k, rng, record):
     """#9 at H-LU's largest TRSM batches of K: (32, 256, 256) dense tiles and
     (128, 256, 32) low-rank V panels, one L_tt for the batch."""
@@ -699,10 +790,22 @@ def check_trsm(hm_k, rng, record):
         nbytes += 4.0 * 2 * b * c * p
         ops += float(b) * c * c * p
     bms, by = bound_ms(nbytes, ops)
+    # the latency floor of H-LU's small TRSM calls: one panel (B = 1)
+    rng1, b1 = np.random.RandomState(SEED + 1), {}
+    for p in (256, 32):
+        x = randn((1, c, p), rng1)
+        err = rel_err(batched_trsm_panels_cuda(lmat, x), batched_trsm_panels_ref(lmat, x))
+        require(err <= 1e-4, f"batched_trsm_panels B=1 P={p}: rel err {err}")
+        b1[f"(1, {c}, {p})"] = {
+            "ms": gpu_ms(lambda: batched_trsm_panels_cuda(lmat, x), 50), "rel_err": err,
+            "library_ms": gpu_ms(lambda: torch.linalg.solve_triangular(lmat, x, upper=False),
+                                 50)}
     record["batched_trsm_panels"] = {
-        "checks": checks, "max_abs_err": max(ch["max_abs_err"] for ch in checks),
+        "widths": sweep_trsm(lmat, torch.Generator("cuda").manual_seed(SEED)),
+        "checks": checks,
+        "max_abs_err": max(ch["max_abs_err"] for ch in checks),
         "rel_err": max(ch["rel_err"] for ch in checks), "ms": ms, "plain_ms": plain,
-        "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib, "B1": b1,
         "timed_shape": "(32, 256, 256) + (128, 256, 32), one L_tt of K (sum of the two)"}
 
 
@@ -727,10 +830,20 @@ def check_schur(rng, record):
         ops += 2.0 * b * 256 * 256 * p
         del cc, a, bb, y, y_ref
     bms, by = bound_ms(nbytes, ops)
+    # the latency floor of H-LU's small Schur calls: one target tile (B = 1)
+    rng1, b1 = np.random.RandomState(SEED + 1), {}
+    for p in (256, 32):
+        cc, a, bb = randn((1, 256, 256), rng1), randn((1, 256, p), rng1), randn((1, 256, p), rng1)
+        err = rel_err(batched_schur_dense_cuda(cc, a, bb), batched_schur_dense_ref(cc, a, bb))
+        require(err <= 1e-5, f"batched_schur_dense B=1 p={p}: rel err {err}")
+        b1[f"(1, 256, 256, p={p})"] = {
+            "ms": gpu_ms(lambda: batched_schur_dense_cuda(cc, a, bb), 50), "rel_err": err,
+            "library_ms": gpu_ms(lambda: torch.baddbmm(cc, a, bb.transpose(1, 2), alpha=-1), 50)}
     record["batched_schur_dense"] = {
-        "checks": checks, "max_abs_err": max(ch["max_abs_err"] for ch in checks),
+        "widths": sweep_schur(torch.Generator("cuda").manual_seed(SEED)), "checks": checks,
+        "max_abs_err": max(ch["max_abs_err"] for ch in checks),
         "rel_err": max(ch["rel_err"] for ch in checks), "ms": ms, "plain_ms": plain,
-        "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib, "B1": b1,
         "timed_shape": "(512, 256, 256, p=256) + (4096, 256, 256, p=32) (sum of the two)"}
 
 
@@ -1477,7 +1590,7 @@ def main(record: dict) -> int:
     log(f"[0] kernels built in {info['seconds']:.1f} s into {info['dir']}")
     for name, rep in info["ptxas"].items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("entry function", "registers", "spill")):
                 log(f"[0] ptxas {name}: {line.strip()}")
     record.update(card=card, torch=torch.__version__, build_s=info["seconds"])
     rng = np.random.RandomState(SEED)
@@ -1508,6 +1621,16 @@ def main(record: dict) -> int:
         dense = record["kernels"]["batched_kernel_matmat"]
         log(f"[1] batched_kernel_matmat on all {dense['whole_dense_group_blocks']} dense "
             f"leaves of P, R=8: {dense['whole_dense_group_ms']:.3f} ms")
+        for name in ("batched_trsm_panels", "batched_schur_dense"):
+            widths = record["kernels"][name]["widths"]
+            log(f"[1] {name} dynamic shared memory by width: {widths['smem_bytes']}")
+            for shape, row in widths["by_shape"].items():
+                times = ", ".join(f"{w}: {t:.4f}" for w, t in row["ms"].items())
+                log(f"[1] {name} at {shape}: ms by width {{{times}}}; wrapper picks "
+                    f"{row['picked']}, fastest {row['fastest']}")
+            for shape, row in record["kernels"][name]["B1"].items():
+                log(f"[1] {name} at {shape}: kernel {row['ms']:.4f} ms, library "
+                    f"{row['library_ms']:.4f} ms, rel err {row['rel_err']:.3e}")
         aca = record["kernels"]["batched_aca"]
         for ch in aca["checks"]:
             log(f"[1] batched_aca {ch['problem']} level {ch['level']} ({ch['blocks']} x "

@@ -7,6 +7,8 @@ There is no size-based route to the plain version and no fallback.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -38,3 +40,9 @@ def require_cuda_f32(what: str, *tensors: torch.Tensor) -> None:
 def stream_handle(device: torch.device) -> int:
     """Raw handle of PyTorch's current stream on ``device`` for a launch."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -12,7 +12,17 @@ import ctypes
 import torch
 
 from ... import _build
-from .. import require_cuda_f32, stream_handle
+from .. import require_cuda_f32, sm_count, stream_handle
+
+# CTA tile edges the kernel is built for, largest first
+SCHUR_TILES = (128, 64)
+
+
+def schur_tile(b: int, m: int, n: int, sms: int) -> int:
+    """CTA tile edge for (b, m, n) on a card of ``sms`` SMs: 128 when b x
+    (128 x 128 tiles) gives every SM a CTA, else 64."""
+    big, small = SCHUR_TILES
+    return big if b * -(-m // big) * -(-n // big) >= sms else small
 
 
 def batched_schur_dense_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -25,16 +35,17 @@ def batched_schur_dense_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) 
                          f"{tuple(b.shape)} do not match (B, m, n), (B, m, p), (B, n, p)")
     nb, m, n = c.shape
     p = a.shape[2]
-    if -(-m // 64) * -(-n // 64) > 65535:
-        raise ValueError(f"{what}: the kernel takes at most 65535 tiles of 64 x 64, "
-                         f"got {m} x {n}")
+    if nb * -(-m // 64) * -(-n // 64) > 2 ** 31 - 1:
+        raise ValueError(f"{what}: the kernel takes at most 2^31 - 1 output tiles of 64 x 64, "
+                         f"got {nb} x {m} x {n}")
     y = torch.empty_like(c)
     if nb == 0 or m == 0 or n == 0:
         return y
+    tile = schur_tile(nb, m, n, sm_count(c.device))
     fn = _build.c_function("schur_dense", "repro_schur_dense",
-                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(c.device):
-        err = fn(c.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), nb, m, n, p,
+        err = fn(c.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), nb, m, n, p, tile,
                  stream_handle(c.device))
     _build.check(err, what)
     _build.LAUNCHES[what] += 1

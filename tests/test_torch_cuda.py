@@ -289,29 +289,54 @@ def test_recompress_kernel_matches_plain_on_card(cuda_device, b, m, n, k, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,p,shared", [(3, 256, 256, True), (4, 256, 32, True),
-                                          (2, 100, 13, False)])
-def test_trsm_panels_kernel_matches_plain_on_card(cuda_device, b, c, p, shared):
+@pytest.mark.parametrize("b,c,p,shared,zero_pivot", [
+    (3, 256, 256, True, False), (4, 256, 32, True, False), (2, 100, 13, False, False),
+    (1, 256, 256, True, False), (128, 256, 32, True, False),   # H-LU's B = 1 and V panels
+    (24, 256, 64, True, False),                                  # 16-column chunks
+    (2, 1024, 40, False, False),                                 # c = 1024: 7 passes a step
+    (2, 75, 7, False, False),                                    # c % 4 != 0: scalar L reads
+    (3, 96, 20, True, True)])                                    # a clamped zero pivot
+def test_trsm_panels_kernel_matches_plain_on_card(cuda_device, b, c, p, shared, zero_pivot):
     from repro_torch.kernels.batched_trsm_lowrank.ops import batched_trsm_panels
     from repro_torch.kernels.batched_trsm_lowrank.ref import batched_trsm_panels_ref
     a = torch.from_numpy(_spd(_rs(c + p), 1 if shared else b, c)).to(cuda_device)
     lmat = batched_block_cholesky(a)
     x = torch.from_numpy(_rs(c).randn(b, c, p).astype(np.float32)).to(cuda_device)
+    if zero_pivot:
+        # row 40 of L (pivot included), its column below and its X row
+        # zero: the 1e-30 clamp gives y = 0 there, as in the plain version
+        lmat[:, 40, :] = 0.0
+        lmat[:, 40:, 40] = 0.0
+        x[:, 40, :] = 0.0
     y = batched_trsm_panels(lmat, x)
+    assert bool(torch.isfinite(y).all())
     assert _rel(y, batched_trsm_panels_ref(lmat, x)) <= 1e-4
-    assert _rel(torch.linalg.solve_triangular(lmat, x, upper=False), y) <= 1e-4
+    if zero_pivot:
+        assert bool((y[:, 40, :] == 0).all())
+    else:
+        assert _rel(torch.linalg.solve_triangular(lmat, x, upper=False), y) <= 1e-4
     assert torch.equal(y, batched_trsm_panels(lmat, x))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,m,n,p", [(3, 256, 256, 256), (5, 256, 256, 32), (2, 100, 70, 9)])
-def test_schur_dense_kernel_matches_plain_on_card(cuda_device, b, m, n, p):
+@pytest.mark.parametrize("b,m,n,p,view", [
+    (3, 256, 256, 256, False), (5, 256, 256, 32, False), (2, 100, 70, 9, False),
+    (1, 256, 256, 256, False), (7, 256, 256, 32, False),        # small grids: 64 x 64 tiles
+    (40, 256, 256, 32, False),                                   # 128 x 128 tiles
+    (3, 130, 200, 17, False),                                    # ragged tiles, p % 16 != 0
+    (2, 37, 45, 9, True)])                                       # bases not 16-byte aligned
+def test_schur_dense_kernel_matches_plain_on_card(cuda_device, b, m, n, p, view):
     from repro_torch.kernels.batched_schur_update.ops import batched_schur_dense
     from repro_torch.kernels.batched_schur_update.ref import batched_schur_dense_ref
     g = torch.Generator(device="cpu").manual_seed(m + n + p)
-    c = torch.randn(b, m, n, generator=g).to(cuda_device)
-    a = torch.randn(b, m, p, generator=g).to(cuda_device)
-    bb = torch.randn(b, n, p, generator=g).to(cuda_device)
+    lead = b + 1 if view else b
+    c = torch.randn(lead, m, n, generator=g).to(cuda_device)
+    a = torch.randn(lead, m, p, generator=g).to(cuda_device)
+    bb = torch.randn(lead, n, p, generator=g).to(cuda_device)
+    if view:
+        # t[1:] starts m n, m p, n p floats in: odd counts, so 4-byte aligned only
+        c, a, bb = c[1:], a[1:], bb[1:]
+        assert all(t.data_ptr() % 16 for t in (c, a, bb))
     y = batched_schur_dense(c, a, bb)
     assert _rel(y, batched_schur_dense_ref(c, a, bb)) <= 1e-5
     assert torch.equal(y, batched_schur_dense(c, a, bb))
