@@ -19,12 +19,18 @@ Phases (any failure ends the run with a non-zero exit code):
      one prefill_32k layer (40, 64, 512, 128)), with times
      of kernel, plain version and the PyTorch library call that computes the
      same function (the ACA also on all level groups of P, as one build runs
-     it);
+     it, with the route each group took; its two routes, resident at every
+     cluster size that fits and streamed, held to the same bits on the
+     sampled blocks of every group of P and K; the dense-leaf product on all
+     leaves of P and K through the level entry, which reads points and panel
+     in place, equal bit for bit to the gathered entry);
   2. problem P, the paper's model problem (N = 2^20 Halton points on the
      unit square, gaussian, k = 16, c_leaf = 2048, eta = 1.5, P mode):
      build, apply to an (N, 8) panel and an (N,) vector, 512 sampled rows
      against the exact dense rows, two applies bit-identical, block-Jacobi
-     setup and 10 PCG iterations;
+     setup and 10 PCG iterations; after the count, one apply under
+     ``torch.profiler`` split into #2, #3, #4 and the glue (and the gathers
+     in it);
   3. problem K, the regression solve (N = 2^15 Halton points scaled by 32,
      c_leaf = 256, sigma2 = 1e-2, tol = 1e-3, R = 8 sinusoid targets):
      block-Jacobi PCG to convergence through the kernels and through the
@@ -36,7 +42,8 @@ Phases (any failure ends the run with a non-zero exit code):
   5. NP mode (factors recomputed by the ACA kernel in every apply): P at
      full width, an (N, 8) panel and an (N,) vector against exact rows,
      two applies bit-identical, ms per apply; then K's block-Jacobi PCG to
-     convergence, iterations held to the P-mode kernel path's;
+     convergence, iterations held to the P-mode kernel path's; after the
+     count, one NP apply of P split under the profiler as in phase 2;
   6. the memory tier on P (device-built store): ``recompress_store`` at tol
      1e-2 and 1e-3 (bytes, k per level, the report), 512 sampled rows of the
      recompressed apply against the flat store's within 5 tol, apply times,
@@ -49,7 +56,8 @@ Phases (any failure ends the run with a non-zero exit code):
      (tile grid, steps, runs, ranks, bytes), setup split into the FACTOR,
      TRSM, SCHUR and re-truncation kernels' shares, ms per iteration; then
      the same factorization through the plain versions on the card, held
-     buffer by buffer to the kernel path's;
+     buffer by buffer to the kernel path's, and a TF32 control (TF32 on:
+     ``factorize_hlu`` must raise, its body is then run behind the guard);
   8. LM serving: qwen2.5-14b-hmatrix at full width and depth (48 layers,
      bf16, random from a generator seeded on the card), one batch of 2
      prompts of 8,192 tokens, prefill and 15 greedy decode steps through
@@ -261,7 +269,8 @@ def randn(shape, rng) -> torch.Tensor:
 
 
 def check_dense(hm_p, hm_k, rng, record):
-    from repro_torch.kernels.batched_dense_matvec.kernel import batched_kernel_matmat_cuda
+    from repro_torch.kernels.batched_dense_matvec.kernel import (
+        batched_kernel_matmat_cuda, batched_kernel_matmat_level_cuda)
     from repro_torch.kernels.batched_dense_matvec.ref import batched_kernel_matmat_ref
     checks = []
     for name, hm in (("K", hm_k), ("P", hm_p)):
@@ -281,19 +290,37 @@ def check_dense(hm_p, hm_k, rng, record):
     ms = gpu_ms(lambda: batched_kernel_matmat_cuda(rows, cols, x, "gaussian"), 5)
     plain = gpu_ms(lambda: batched_kernel_matmat_ref(rows, cols, x, "gaussian"), 2)
     bms, by = bound_ms(4.0 * (2 * b * c * d + 2 * b * c * 8), b * c * c * ((3 * d - 1) + 1 + 2 * 8))
-    # the kernel on all dense leaves of P in one launch, as an apply makes
-    # it: the kernels' share of the apply's time (the rest is glue)
-    g = hm_p.groups["dense"]
-    leaf_pts = hm_p.tree.points.reshape(-1, c, d)
-    rows, cols = leaf_pts[g.rows], leaf_pts[g.cols]
-    x_blk = randn((hm_p.plan.n_pad, 8), rng).reshape(-1, c, 8)[g.cols]
-    whole_ms = gpu_ms(lambda: batched_kernel_matmat_cuda(rows, cols, x_blk, "gaussian"), 3)
+    # the kernel on all dense leaves of P (and of K) in one launch, as an
+    # apply makes it, through the level entry (points and panel read in
+    # place): the kernels' share of the apply's time (the rest is glue).
+    # The gathered entry on the same leaves must give the same bits.
+    whole = {}
+    for name, hm in (("P", hm_p), ("K", hm_k)):
+        g, cl = hm.groups["dense"], hm.plan.c_leaf
+        x_pad = randn((hm.plan.n_pad, 8), rng)
+        leaf_pts = hm.tree.points.reshape(-1, cl, d)
+        rows, cols = leaf_pts[g.rows], leaf_pts[g.cols]
+        x_blk = x_pad.reshape(-1, cl, 8)[g.cols]
+        y_level = batched_kernel_matmat_level_cuda(hm.tree.points, g.rows, g.cols, x_pad, cl)
+        same = bool(torch.equal(y_level, batched_kernel_matmat_cuda(rows, cols, x_blk)))
+        require(same, f"batched_kernel_matmat {name}: the level entry differs from the "
+                "gathered entry")
+        nb = int(g.rows.shape[0])
+        whole[name] = {
+            "blocks": nb, "C": cl, "level_equals_gathered": same,
+            "bound_ms": bound_ms(4.0 * (2 * nb * cl * d + 2 * nb * cl * 8),
+                                 nb * cl * cl * ((3 * d - 1) + 1 + 2 * 8))[0],
+            "level_ms": gpu_ms(lambda: batched_kernel_matmat_level_cuda(
+                hm.tree.points, g.rows, g.cols, x_pad, cl), 3),
+            "gathered_ms": gpu_ms(lambda: batched_kernel_matmat_cuda(rows, cols, x_blk), 3)}
+        del rows, cols, x_blk, y_level
     record["batched_kernel_matmat"] = {
         "checks": checks, "max_abs_err": max(ch["max_abs_err"] for ch in checks),
         "rel_err": max(ch["rel_err"] for ch in checks), "ms": ms, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "timed_shape": f"B={b} C={c} d={d} R=8 (blocks of problem P)",
-        "whole_dense_group_ms": whole_ms, "whole_dense_group_blocks": int(g.rows.shape[0])}
+        "whole_dense_group_ms": whole["P"]["level_ms"],
+        "whole_dense_group_blocks": whole["P"]["blocks"], "whole_dense_group": whole}
 
 
 def check_lowrank(hm_p, rng, record):
@@ -473,6 +500,25 @@ def kernel_pivots(points, rid, cid, m: int, k: int):
     return idx[0].t(), cols
 
 
+def aca_routes_equal(points, rid, cid, m: int, k: int, smem: int, name: str, level: int) -> dict:
+    """#3's two routes on the same sampled blocks: the streamed route and the
+    resident route on every cluster size whose CTAs fit must give the same
+    U, V and pivot keys, bit for bit."""
+    from repro_torch.kernels.batched_aca.kernel import (RESIDENT_CLUSTERS, _aca_launch,
+                                                        resident_fits)
+    d = points.shape[1]
+    want = _aca_launch(points, rid, points, cid, m, m, "gaussian", k, "streamed")
+    clusters = [cs for cs in RESIDENT_CLUSTERS if resident_fits(m, m, k, d, cs, smem)]
+    equal = {cs: all(bool(torch.equal(a, w)) for a, w in
+                     zip(_aca_launch(points, rid, points, cid, m, m, "gaussian", k, "resident",
+                                     cs), want))
+             for cs in clusters}
+    require(all(equal.values()), f"batched_aca {name} level {level}: the resident route "
+            f"(clusters {equal}) differs from the streamed route")
+    return {"problem": name, "level": level, "blocks": int(rid.shape[0]), "m": m,
+            "resident_clusters_equal_to_streamed": equal}
+
+
 def check_aca(hm_p, hm_k, rng, record):
     """The ACA kernel on up to 8 blocks of every level group of P and K,
     held by its sampled error relative to the group's largest sampled
@@ -483,10 +529,12 @@ def check_aca(hm_p, hm_k, rng, record):
     from functools import partial
 
     from repro_torch.core import batched_aca
-    from repro_torch.kernels.batched_aca.kernel import batched_aca_level_cuda
+    from repro_torch.kernels.batched_aca.kernel import (aca_route, batched_aca_level_cuda,
+                                                        smem_per_block)
     from repro_torch.kernels.batched_aca.ref import batched_aca_level_ref
     from repro_torch.kernels.phi import phi_matrix
-    checks = []
+    checks, routes = [], []
+    smem = smem_per_block(hm_p.tree.points.device)
     for name, hm, points in (("P", hm_p, hm_p.tree.points), ("K", hm_k, hm_k.tree.points),
                              ("K/32", hm_k, hm_k.tree.points / 32.0)):
         for level in sorted(hm.plan.aca_levels):
@@ -513,6 +561,8 @@ def check_aca(hm_p, hm_k, rng, record):
             # the two approximations of the sampled entries against each other
             vs_plain = max_abs(u[:, ri] @ v[:, ci].transpose(1, 2),
                                ur[:, ri] @ vr[:, ci].transpose(1, 2))
+            if name != "K/32":
+                routes.append(aca_routes_equal(points, rid, cid, m, hm.k, smem, name, level))
             checks.append({"problem": name, "level": level, "blocks": count, "m": m,
                            "sampled_max_abs_phi": scale, "sampled_max_err": err,
                            "plain_sampled_max_err": err_ref, "sampled_rel_err": rel,
@@ -532,7 +582,12 @@ def check_aca(hm_p, hm_k, rng, record):
                                                   "gaussian", hm_p.k), 3)
         tp = gpu_ms(lambda: batched_aca_level_ref(hm_p.tree.points, g.rows, g.cols, level,
                                                   "gaussian", hm_p.k), 1, warmup=0)
-        per_level[level] = {"B": int(g.rows.shape[0]), "m": m, "ms": t, "plain_ms": tp}
+        route, cluster = aca_route(m, m, hm_p.k, hm_p.tree.points.shape[1], smem)
+        per_level[level] = {"B": int(g.rows.shape[0]), "m": m, "route": route,
+                            "cluster": cluster, "ms": t, "plain_ms": tp}
+        if route == "resident":            # the other route, for the picker's record
+            per_level[level]["streamed_ms"] = gpu_ms(lambda: batched_aca_level_cuda(
+                hm_p.tree.points, g.rows, g.cols, level, "gaussian", hm_p.k, route="streamed"), 3)
         ms, plain = ms + t, plain + tp
         b_, o_ = aca_work(int(g.rows.shape[0]), m, m, hm_p.k)
         nbytes, ops = nbytes + b_, ops + o_
@@ -545,7 +600,7 @@ def check_aca(hm_p, hm_k, rng, record):
         "blocks_with_other_pivots": sum(ch["blocks_with_other_pivots"] for ch in checks),
         "blocks_checked": sum(ch["blocks"] for ch in checks),
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "bound_bytes": nbytes, "bound_ops": ops, "per_level_P": per_level,
+        "bound_bytes": nbytes, "bound_ops": ops, "per_level_P": per_level, "routes": routes,
         "timed_shape": "every level group of problem P, k=16 (sum over levels)"}
 
 
@@ -1109,7 +1164,7 @@ def run_np_mode(pts_p, pts_k, iters_kern, allowed, rng, out):
     require(err <= 1e-4, f"NP mode P: rel err on 512 sampled rows {err}")
     require(err_vec <= 1e-4, f"NP mode P (vector): rel err on 512 sampled rows {err_vec}")
     require(identical, "NP mode P: two applies of one panel are not bit-identical")
-    del hm, apply_h, z, z1
+    del apply_h, z, z1
     torch.cuda.empty_cache()
 
     sigma2 = 1e-2
@@ -1129,6 +1184,62 @@ def run_np_mode(pts_p, pts_k, iters_kern, allowed, rng, out):
     require(all(abs(a - b) <= lim for a, b, lim in zip(iters, iters_kern, allowed)),
             f"NP mode K: iterations {iters} differ from the P-mode kernel path {iters_kern} "
             f"by more than {allowed} per column")
+    return hm
+
+
+# kernels of an apply by the names the profiler gives them (csrc/*.cu); the
+# rest of the device time is the glue of core/hmatrix.py
+APPLY_PARTS = {"#2 dense leaves": ("dense_matmat_kernel",),
+               "#3 ACA": ("aca_resident_kernel", "aca_stream_"),
+               "#4 low-rank": ("vtx_partial_kernel", "reduce_partials_kernel",
+                               "u_times_t_kernel")}
+GATHER_NAMES = ("index", "gather")
+
+
+def apply_split(hm, rng) -> dict:
+    """One apply of an (N, 8) panel under ``torch.profiler`` (after a warm
+    one): device ms of #2, #3, #4 and the glue, launches of each, the
+    glue's largest kernels, and the gathers (index kernels) in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import make_apply
+    apply_h = make_apply(hm)
+    x = randn((hm.tree.n, 8), rng)
+    apply_h(x)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, secs = wall_s(lambda: apply_h(x))
+    parts = {name: [0.0, 0] for name in list(APPLY_PARTS) + ["glue"]}
+    glue, gathers = [], [0.0, 0]
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        part = next((name for name, keys in APPLY_PARTS.items()
+                     if any(key in e.key for key in keys)), "glue")
+        parts[part][0] += e.device_time_total / 1e3
+        parts[part][1] += e.count
+        if part == "glue":
+            glue.append({"name": e.key[:100], "ms": e.device_time_total / 1e3, "calls": e.count})
+            if any(g in e.key.lower() for g in GATHER_NAMES):
+                gathers[0] += e.device_time_total / 1e3
+                gathers[1] += e.count
+    glue.sort(key=lambda g: -g["ms"])
+    device_ms = sum(v[0] for v in parts.values())
+    return {"host_ms": secs * 1e3, "device_ms": device_ms,
+            "idle_share": max(0.0, 1.0 - device_ms / 1e3 / secs),
+            "parts_ms": {k: v[0] for k, v in parts.items()},
+            "parts_launches": {k: v[1] for k, v in parts.items()},
+            "glue_gathers_ms": gathers[0], "glue_gathers_launches": gathers[1],
+            "glue_top": glue[:8]}
+
+
+def log_apply_split(key: str, split: dict) -> None:
+    parts = ", ".join(f"{k} {v:.3f} ms ({split['parts_launches'][k]} launches)"
+                      for k, v in split["parts_ms"].items())
+    log(f"[{key} profile] one apply R=8: host {split['host_ms']:.3f} ms, device "
+        f"{split['device_ms']:.3f} ms (idle {split['idle_share']:.3f}): {parts}; gathers in the "
+        f"glue {split['glue_gathers_ms']:.3f} ms ({split['glue_gathers_launches']} launches)")
+    for g in split["glue_top"]:
+        log(f"[{key} profile]   glue {g['ms']:9.3f} ms {g['calls']:5d}x  {g['name']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1233,7 +1344,9 @@ def timed_hlu_kernels(events: dict):
 def tf32_hlu_factorization(hm):
     """K's H-LU through the kernel path with TF32 matmuls on and the dense
     Schur update in TF32 ``torch.baddbmm``: the lower-precision control of
-    the phase-7 limits."""
+    the phase-7 limits.  ``factorize_hlu`` itself must refuse to run while
+    TF32 is on (its guard); the control calls the body behind the guard.
+    Returns (factors, whether the guard refused)."""
     from repro_torch.harith import factorize_hlu, hlu
     orig, tf32 = hlu._kernels, torch.backends.cuda.matmul.allow_tf32
 
@@ -1244,7 +1357,12 @@ def tf32_hlu_factorization(hm):
                                         + orig(use_kernels)[3:])
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        return factorize_hlu(hm, 1e-2, tol=1e-3)
+        refused = False
+        try:
+            factorize_hlu(hm, 1e-2, tol=1e-3)
+        except RuntimeError as err:        # the guard this control expects
+            refused = "TF32" in str(err)
+        return hlu._factorize_hlu(hm, 1e-2, tol=1e-3, kp=None, use_kernels=True), refused
     finally:
         hlu._kernels, torch.backends.cuda.matmul.allow_tf32 = orig, tf32
 
@@ -1359,14 +1477,16 @@ def run_hlu_measurements(hm, pre, f, rng, out):
             f"{HLU_DENSE_LIMIT}) and {d_lowrank} (u v^T, limit {HLU_LOWRANK_LIMIT})")
     # control: the kernel path with TF32 matmuls and the dense Schur update
     # through TF32 baddbmm, held to the same limits (recorded, not gated)
-    control = tf32_hlu_factorization(hm)
+    control, refused = tf32_hlu_factorization(hm)
     c_dense, c_lowrank = compare_hlu_factors(control, plain)
     res["tf32_control"] = {"dense_max_abs_diff": c_dense, "lowrank_uvT_max_abs_diff": c_lowrank,
                            "within_limits": c_dense <= HLU_DENSE_LIMIT
-                           and c_lowrank <= HLU_LOWRANK_LIMIT}
+                           and c_lowrank <= HLU_LOWRANK_LIMIT,
+                           "factorize_hlu_refused_tf32": refused}
+    require(refused, "H-LU: factorize_hlu ran with TF32 on instead of raising")
     log(f"[H-LU TF32 control] max abs difference to the plain factorization: dense tiles "
         f"{c_dense:.3e}, low-rank tiles (u v^T) {c_lowrank:.3e}; within the limits "
-        f"{res['tf32_control']['within_limits']}")
+        f"{res['tf32_control']['within_limits']}; factorize_hlu refused TF32 {refused}")
 
 
 # ---------------------------------------------------------------------------
@@ -1619,8 +1739,11 @@ def main(record: dict) -> int:
                 f"plain {rec['plain_ms']:.3f} ms, library {rec['library_ms']}, bound "
                 f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}); {rec['timed_shape']}")
         dense = record["kernels"]["batched_kernel_matmat"]
-        log(f"[1] batched_kernel_matmat on all {dense['whole_dense_group_blocks']} dense "
-            f"leaves of P, R=8: {dense['whole_dense_group_ms']:.3f} ms")
+        for name, w in dense["whole_dense_group"].items():
+            log(f"[1] batched_kernel_matmat on all {w['blocks']} dense leaves of {name} (C="
+                f"{w['C']}, R=8): level entry {w['level_ms']:.3f} ms, gathered entry "
+                f"{w['gathered_ms']:.3f} ms, bound {w['bound_ms']:.3f} ms (operations); equal "
+                f"bit for bit {w['level_equals_gathered']}")
         for name in ("batched_trsm_panels", "batched_schur_dense"):
             widths = record["kernels"][name]["widths"]
             log(f"[1] {name} dynamic shared memory by width: {widths['smem_bytes']}")
@@ -1640,6 +1763,15 @@ def main(record: dict) -> int:
                 f"{ch['blocks_with_other_pivots']} blocks")
         log(f"[1] batched_aca: {aca['blocks_with_other_pivots']} of {aca['blocks_checked']} "
             "checked blocks chose another pivot sequence than the plain version")
+        for rt in aca["routes"]:
+            log(f"[1] batched_aca routes {rt['problem']} level {rt['level']} ({rt['blocks']} x "
+                f"{rt['m']}): resident clusters equal to streamed "
+                f"{rt['resident_clusters_equal_to_streamed']}")
+        for level, row in aca["per_level_P"].items():
+            log(f"[1] batched_aca P level {level} ({row['B']} x {row['m']}): {row['route']} "
+                f"(cluster {row['cluster']}) {row['ms']:.3f} ms"
+                + (f", streamed {row['streamed_ms']:.3f} ms" if "streamed_ms" in row else "")
+                + f"; plain {row['plain_ms']:.3f} ms")
         rc = record["kernels"]["batched_recompress"]
         for ch in rc["checks"]:
             log(f"[1] batched_recompress {ch.get('level', ch.get('shape'))} ({ch['B']} x "
@@ -1675,6 +1807,8 @@ def main(record: dict) -> int:
         _build.reset_launches()
         run_problem_p(pts_p, hm_p, rng, record)
         count_launches("P")
+        record["P"]["apply_split"] = apply_split(hm_p, rng)
+        log_apply_split("P", record["P"]["apply_split"])
     del hm_p
     torch.cuda.empty_cache()
     if "3" in args.phases:
@@ -1701,8 +1835,11 @@ def main(record: dict) -> int:
     if "5" in args.phases:
         require("3" in args.phases, "phase 5 holds NP mode to phase 3's iteration counts")
         _build.reset_launches()
-        run_np_mode(pts_p, pts_k, iters_kern, allowed, rng, record)
+        hm_np = run_np_mode(pts_p, pts_k, iters_kern, allowed, rng, record)
         count_launches("np_mode")
+        record["P_np"]["apply_split"] = apply_split(hm_np, rng)
+        log_apply_split("P NP", record["P_np"]["apply_split"])
+        del hm_np
         torch.cuda.empty_cache()
     if "6" in args.phases:
         _build.reset_launches()

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .._device import as_f32, resolve_device
+from .._device import as_f32, require_full_fp32, resolve_device
 from .admissibility import admissible
 from .block_tree import HMatrixPlan
 from .clustering import ClusterTree, _level_bounding_boxes, next_pow2
@@ -220,6 +220,7 @@ def build_hmatrix_device_report(
         raise NotImplementedError("chaos= (fault containment of the build launches) is not "
                                   "ported yet; it comes with serve/faults.py")
     dev = resolve_device(device)
+    require_full_fp32("build_hmatrix_device", dev)
     kname = kernel_name_of(kernel)
     pts = as_f32(coords, dev)
     n = pts.shape[0]

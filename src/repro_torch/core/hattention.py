@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from .._device import require_full_fp32
 from ..kernels.hattention_block.ops import hattention_nearfield_op
 
 CLAMP = 30.0
@@ -160,11 +161,13 @@ def leaf_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, c_leaf: int):
     g = h // hkv
     scale = 1.0 / math.sqrt(d)
     qf = (q.float() * scale).reshape(b, s, hkv, g, d)
-    qf = qf.permute(0, 2, 3, 1, 4).reshape(b * hkv * g, s, d)         # (BH, S, D)
+    # contiguous copies: for one sequence the reshapes below would stay views
+    # (strided q heads, stride-0 repeated K / V heads), which the kernel refuses
+    qf = qf.permute(0, 2, 3, 1, 4).reshape(b * hkv * g, s, d).contiguous()   # (BH, S, D)
     kf = k.float().permute(0, 2, 1, 3)[:, :, None].expand(b, hkv, g, s, d)
-    kf = kf.reshape(b * hkv * g, s, d)
+    kf = kf.reshape(b * hkv * g, s, d).contiguous()
     vf = v.float().permute(0, 2, 1, 3)[:, :, None].expand(b, hkv, g, s, d)
-    vf = vf.reshape(b * hkv * g, s, d)
+    vf = vf.reshape(b * hkv * g, s, d).contiguous()
     n_leaf = s // c_leaf
     bh = qf.shape[0]
     return (qf, kf, vf, qf.view(bh, n_leaf, c_leaf, d), kf.view(bh, n_leaf, c_leaf, d),
@@ -178,7 +181,9 @@ def h_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c_leaf: in
     q: (B, S, H, D); k, v: (B, S, Hkv, D) -> (B, S, H, D) in q's dtype.  The
     near field runs through ``hattention_nearfield_op`` (the CUDA kernel for
     CUDA tensors), the far field as batched ACA per level in PyTorch.
+    Raises for CUDA operands while TF32 is enabled for float32 matmuls.
     """
+    require_full_fp32("h_attention", q.device)
     b, s, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv

@@ -26,7 +26,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._device import as_f32, resolve_device
+from .._device import as_f32, require_full_fp32, resolve_device
 from .aca import batched_aca
 from .block_tree import HMatrixPlan, build_block_tree
 from .clustering import ClusterTree, build_cluster_tree, permute_from_tree, permute_to_tree
@@ -142,6 +142,7 @@ def build_hmatrix(coords, kernel: str | Callable = "gaussian", k: int = 16,
     oracle and on the card the recompression kernel runs.
     """
     dev = resolve_device(device)
+    require_full_fp32("build_hmatrix", dev)
     kname = kernel_name_of(kernel)
     kfn = get_kernel(kname)
     tree = build_cluster_tree(as_f32(coords, dev), c_leaf=c_leaf)
@@ -219,26 +220,23 @@ def _aca_level_apply(tree: ClusterTree, level: int, g: BlockGroup, U, V,
 def _dense_apply_points(points: torch.Tensor, plan: HMatrixPlan, kernel: Callable,
                         g: BlockGroup, x_pad: torch.Tensor, z_pad: torch.Tensor,
                         use_kernels: bool):
+    """The dense leaves: their points and panel slices are read by leaf id
+    from ``points`` and ``x_pad`` (the kernel reads them in place; the plain
+    versions gather them and store the (B, c, c) blocks)."""
     if g.rows.shape[0] == 0:
         return z_pad
     c = plan.c_leaf
-    r = x_pad.shape[1]
-    n_leaf = plan.n_pad // c
-    pts = points.reshape(n_leaf, c, -1)
-    x_blk = x_pad.reshape(n_leaf, c, r)[g.cols]                  # (B, c, R)
-    # the plain versions store the (B, c, c) blocks
-    if r == 1:
-        if use_kernels:
-            from ..kernels.batched_dense_matvec.ops import batched_kernel_matvec as matvec
-        else:
-            from ..kernels.batched_dense_matvec.ref import batched_kernel_matvec_ref as matvec
-        y = matvec(pts[g.rows], pts[g.cols], x_blk[:, :, 0], kernel_name_of(kernel))[:, :, None]
+    kname = kernel_name_of(kernel)
+    if use_kernels:
+        from ..kernels.batched_dense_matvec.ops import (
+            batched_kernel_matmat_level as matmat, batched_kernel_matvec_level as matvec)
     else:
-        if use_kernels:
-            from ..kernels.batched_dense_matvec.ops import batched_kernel_matmat as matmat
-        else:
-            from ..kernels.batched_dense_matvec.ref import batched_kernel_matmat_ref as matmat
-        y = matmat(pts[g.rows], pts[g.cols], x_blk, kernel_name_of(kernel))
+        from ..kernels.batched_dense_matvec.ref import (
+            batched_kernel_matmat_level_ref as matmat, batched_kernel_matvec_level_ref as matvec)
+    if x_pad.shape[1] == 1:
+        y = matvec(points, g.rows, g.cols, x_pad[:, 0], c, kname)[:, :, None]
+    else:
+        y = matmat(points, g.rows, g.cols, x_pad.contiguous(), c, kname)
     return _scatter_rows(z_pad, y, g)
 
 
@@ -292,6 +290,7 @@ def make_apply(hm: HMatrix, use_kernels: bool = True, mesh=None) -> Callable:
         return permute_from_tree(tree, z_pad)
 
     def apply(x) -> torch.Tensor:
+        require_full_fp32("apply", hm.device)
         x = as_f32(x, hm.device)
         if x.ndim not in (1, 2) or x.shape[0] != tree.n:
             # explicit check, as the reference keeps it (jnp gathers clamp)

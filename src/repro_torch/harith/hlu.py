@@ -46,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import require_full_fp32
 from ..core.aca import batched_aca
 from ..core.factor_store import effective_ranks
 from ..kernels.phi import phi_matrix
@@ -273,8 +274,17 @@ def factorize_hlu(hm, sigma2: float, *, tol: float = 1e-3, kp: int | None = None
     width of the low-rank tiles (default twice the input rank).
     ``use_kernels`` routes FACTOR, TRSM and SCHUR through the kernel
     wrappers (the CUDA kernels for CUDA tensors, their plain versions on the
-    CPU); ``False`` takes the plain versions on any device.
+    CPU); ``False`` takes the plain versions on any device.  Raises for a
+    CUDA H-matrix while TF32 is enabled for float32 matmuls.
     """
+    require_full_fp32("factorize_hlu", hm.tree.points.device)
+    return _factorize_hlu(hm, sigma2, tol=tol, kp=kp, use_kernels=use_kernels,
+                          _plan_only=_plan_only)
+
+
+def _factorize_hlu(hm, sigma2: float, *, tol: float, kp: int | None, use_kernels: bool,
+                   _plan_only: bool = False):
+    """:func:`factorize_hlu` without the TF32 check."""
     plan, tree = hm.plan, hm.tree
     grid = build_tile_grid(plan)
     schedule = build_schedule(grid)
@@ -315,7 +325,9 @@ def hlu_solve_panels(factors: HLUFactors, r_pad: torch.Tensor) -> torch.Tensor:
 
     Forward block substitution row by row (dense tiles as (c, c) products,
     low-rank tiles as two thin ones), then the transposed backward sweep.
+    Raises for CUDA operands while TF32 is enabled for float32 matmuls.
     """
+    require_full_fp32("hlu_solve_panels", r_pad.device)
     meta = factors.meta
     grid = meta.grid
     t_tiles, c = grid.t, grid.c

@@ -28,7 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._device import as_f32
+from .._device import as_f32, require_full_fp32
 from ..core.clustering import permute_from_tree, permute_to_tree
 from ..core.hmatrix import HMatrix, apply_in_tree_order, diagonal_blocks
 from ..harith.hlu import HLUFactors, hlu_solve_panels
@@ -237,6 +237,7 @@ def make_solver(hm: HMatrix, sigma2: float, tol: float = 1e-5, max_iter: int = 3
         chol = None
 
     def solve(f):
+        require_full_fp32("solve", hm.device)
         f = as_f32(f, hm.device)
         if f.ndim not in (1, 2) or f.shape[0] != n:
             raise ValueError(f"rhs shape {tuple(f.shape)} incompatible with "

@@ -16,6 +16,10 @@ the plain QR + SVD) by equal ranks or a reconstruction error within
 ``m`` within 1e-5 absolute and ``num``, ``den`` within 1e-4 relative (the
 JAX test's limits), and the LM's prefill through the kernel against the
 same prefill through the plain version on the card within 1e-4 relative.
+The ACA's two routes (resident, at every cluster size that fits, and
+streamed) must give the same bits, and the dense leaves' level entry the
+gathered entry's bits.  With TF32 on, every entry point raises for CUDA
+operands.
 """
 import numpy as np
 import pytest
@@ -68,6 +72,39 @@ def test_dense_matmat_kernel_matches_plain_on_card(cuda_device, c, r):
     for kernel in ("gaussian", "matern"):
         y = batched_kernel_matmat(rows, cols, x, kernel)
         assert _rel(y, batched_kernel_matmat_ref(rows, cols, x, kernel)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [96, 256, 2048])
+@pytest.mark.parametrize("r", [1, 8, 13])
+def test_dense_level_entry_equals_the_gathered_entry_on_card(cuda_device, c, r):
+    from repro_torch.kernels.batched_dense_matvec.ops import (batched_kernel_matmat_level,
+                                                              batched_kernel_matvec_level)
+    g = torch.Generator(device="cpu").manual_seed(c + r)
+    n_leaf = 6
+    points = (torch.rand(n_leaf * c, 2, generator=g) * 2).to(cuda_device)
+    x_pad = torch.randn(n_leaf * c, r, generator=g).to(cuda_device)
+    rows = torch.tensor([4, 0, 4, 2, 5, 1, 4], device=cuda_device)
+    cols = torch.tensor([1, 0, 5, 2, 5, 3, 0], device=cuda_device)
+    leaf = points.reshape(n_leaf, c, 2)
+    g_rows, g_cols = leaf[rows].contiguous(), leaf[cols].contiguous()
+    g_x = x_pad.reshape(n_leaf, c, r)[cols].contiguous()
+    for kernel in ("gaussian", "matern"):
+        before = _build.LAUNCHES["batched_kernel_matmat"]
+        y = batched_kernel_matmat_level(points, rows, cols, x_pad, c, kernel)
+        assert _build.LAUNCHES["batched_kernel_matmat"] == before + 1
+        assert torch.equal(y, batched_kernel_matmat(g_rows, g_cols, g_x, kernel))
+        assert _rel(y, batched_kernel_matmat_ref(g_rows, g_cols, g_x, kernel)) <= 1e-5
+        if r == 1:
+            yv = batched_kernel_matvec_level(points, rows, cols, x_pad[:, 0], c, kernel)
+            assert torch.equal(yv, batched_kernel_matvec(g_rows, g_cols, g_x[:, :, 0], kernel))
+            assert torch.equal(yv, y[:, :, 0])
+    # a leaf id outside the leaves reads nothing outside the arrays: NaN rows
+    bad = torch.where(rows == 2, n_leaf, rows)
+    yb = batched_kernel_matmat_level(points, bad, cols, x_pad, c)
+    assert yb[3].isnan().all()
+    keep = torch.tensor([0, 1, 2, 4, 5, 6], device=cuda_device)
+    assert torch.equal(yb[keep], batched_kernel_matmat_level(points, rows, cols, x_pad, c)[keep])
 
 
 @pytest.mark.cuda
@@ -157,13 +194,13 @@ def _aca_err(rows, cols, u, v, kernel):
     return float((phi_matrix(rows, cols, kernel) - u @ v.transpose(1, 2)).abs().max())
 
 
-def _aca_blocks(rows, cols, kernel, k):
+def _aca_blocks(rows, cols, kernel, k, route=None, cluster=None):
     """The ACA kernel on gathered blocks (B, m, d), (B, n, d) -> (U, V, row
     pivots, column pivots), the pivots (B, k) decoded from the kernel's keys."""
     b, m, d = rows.shape
     ids = torch.arange(b, device=rows.device)
     u, v, keys = aca_kernel._aca_launch(rows.reshape(-1, d), ids, cols.reshape(-1, d), ids,
-                                        m, cols.shape[1], kernel, k)
+                                        m, cols.shape[1], kernel, k, route, cluster)
     idx = 0xFFFFFFFF - (keys & 0xFFFFFFFF)
     piv_cols = torch.zeros_like(idx[0].t())
     piv_cols[:, 1:] = idx[1, :-1].t()
@@ -188,6 +225,40 @@ def test_aca_kernel_matches_plain_on_card(cuda_device, b, m, n, k, kernel):
         for blk in range(b):
             assert len(set(piv_rows[blk].tolist())) == k
             assert len(set(piv_cols[blk].tolist())) == k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,n,k", [(3, 64, 64, 8), (2, 300, 200, 16), (1, 5000, 5000, 16),
+                                     (4, 10, 12, 16), (2, 300, 200, 64)])
+@pytest.mark.parametrize("kernel", ["gaussian", "matern"])
+@pytest.mark.parametrize("d", [1, 3])
+def test_aca_routes_give_the_same_bits_on_card(cuda_device, b, m, n, k, kernel, d):
+    g = torch.Generator(device="cpu").manual_seed(b + m + n + k + d)
+    rows = torch.rand(b, m, d, generator=g).to(cuda_device)
+    cols = (torch.rand(b, n, d, generator=g) + 1.5).to(cuda_device)
+    want = _aca_blocks(rows, cols, kernel, k, "streamed")
+    limit = aca_kernel.smem_per_block(rows.device)
+    clusters = [cs for cs in aca_kernel.RESIDENT_CLUSTERS
+                if aca_kernel.resident_fits(m, n, k, d, cs, limit)]
+    assert clusters
+    for cs in clusters:
+        got = _aca_blocks(rows, cols, kernel, k, "resident", cs)
+        assert all(torch.equal(a, w) for a, w in zip(got, want)), cs
+    # the picker's own route gives the same bits as well
+    assert all(torch.equal(a, w) for a, w in zip(_aca_blocks(rows, cols, kernel, k), want))
+    ur, vr = batched_aca_ref(rows, cols, kernel, k)
+    assert _aca_err(rows, cols, want[0], want[1], kernel) <= max(
+        2.0 * _aca_err(rows, cols, ur, vr, kernel), 1e-4)
+
+
+@pytest.mark.cuda
+def test_aca_resident_route_refuses_a_block_too_large(cuda_device):
+    pts = torch.rand(1 << 15, 2, device=cuda_device)
+    ids = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="resident"):
+        aca_kernel.batched_aca_level_cuda(pts, ids, ids, 0, "gaussian", 16, route="resident")
+    u, v = aca_kernel.batched_aca_level_cuda(pts, ids, ids, 0, "gaussian", 16)     # streamed
+    assert u.shape == (1, 1 << 15, 16) and bool(torch.isfinite(u).all())
 
 
 @pytest.mark.cuda
@@ -431,3 +502,46 @@ def test_lm_prefill_on_card_matches_the_plain_route(cuda_device, monkeypatch):
     plain = generate(params, cfg, prompts, 4)
     assert _rel(out["prefill_logits"], plain["prefill_logits"]) <= 1e-4
     assert torch.equal(out["tokens"], plain["tokens"])
+
+
+@pytest.mark.cuda
+def test_entry_points_raise_while_tf32_is_on(cuda_device, monkeypatch):
+    from repro_torch.core import (build_hmatrix, build_hmatrix_device,
+                                  build_hmatrix_device_report, halton, make_apply)
+    from repro_torch.core.clustering import permute_to_tree
+    from repro_torch.core.hattention import h_attention
+    from repro_torch.harith import factorize_hlu, hlu_solve_panels
+    from repro_torch.solve import make_solver
+    pts = halton(1000, 2) * 4.0
+    x = torch.from_numpy(_rs(11).randn(1000, 2).astype(np.float32)).to(cuda_device)
+    hm = build_hmatrix(pts, "gaussian", k=8, c_leaf=128, precompute=True)
+    apply_h, solve = make_apply(hm), make_solver(hm, 1e-2, tol=1e-4)
+    factors = factorize_hlu(hm, 1e-2, tol=1e-3)
+    r_pad = permute_to_tree(hm.tree, x)
+    q = torch.randn(1, 1024, 2, 16, device=cuda_device)
+    kv = torch.randn(1, 1024, 1, 16, device=cuda_device)      # one KV head, one sequence
+    calls = {"build_hmatrix": lambda: build_hmatrix(pts, "gaussian", k=8, c_leaf=128),
+             "build_hmatrix_device": lambda: build_hmatrix_device(pts, "gaussian", k=8,
+                                                                  c_leaf=128),
+             "build_hmatrix_device_report": lambda: build_hmatrix_device_report(
+                 pts, "gaussian", k=8, c_leaf=128),
+             "apply": lambda: apply_h(x), "solve": lambda: solve(x),
+             "factorize_hlu": lambda: factorize_hlu(hm, 1e-2, tol=1e-3),
+             "hlu_solve_panels": lambda: hlu_solve_panels(factors, r_pad),
+             "h_attention": lambda: h_attention(q, kv, kv, c_leaf=256, rank=4)}
+    for name, call in calls.items():
+        call()                                      # TF32 off: runs
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        for name, call in calls.items():
+            with pytest.raises(RuntimeError, match="TF32"):
+                call()
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        for name, call in calls.items():
+            with pytest.raises(RuntimeError, match="TF32"):
+                call()
+    finally:
+        torch.set_float32_matmul_precision(old)
+    assert torch.equal(apply_h(x), apply_h(x))        # TF32 off again: runs
