@@ -54,7 +54,9 @@ Phases (any failure ends the run with a non-zero exit code):
      convergence in at most 3 iterations per column (``repro``: 1), residual
      checked with a separate apply, two solves bit-identical, the report
      (tile grid, steps, runs, ranks, bytes), setup split into the FACTOR,
-     TRSM, SCHUR and re-truncation kernels' shares, ms per iteration; then
+     TRSM, SCHUR and re-truncation kernels' shares (the re-truncation's
+     calls with their blocks, all-zero blocks and Jacobi sweeps, and its
+     bound over them), ms per iteration; then
      the same factorization through the plain versions on the card, held
      buffer by buffer to the kernel path's, and a TF32 control (TF32 on:
      ``factorize_hlu`` must raise, its body is then run behind the guard);
@@ -1320,13 +1322,18 @@ def run_memory_tier(pts_p, rng, out):
     out["memory_tier"] = res
 
 
-def timed_hlu_kernels(events: dict):
+def timed_hlu_kernels(events: dict, retruncations: list):
     """``harith.hlu._kernels`` with each kernel call bracketed by CUDA events
-    (appended to ``events[name]``), for the setup's split by kernel."""
+    (appended to ``events[name]``), for the setup's split by kernel.  The
+    re-truncation calls #8's wrapper itself (the route of
+    ``batched_schur_retruncate`` for CUDA operands above the Gram floor) so
+    that its sweep counts are kept: ``retruncations`` gets (B, m, n, k, the
+    all-zero blocks, the sweeps) of every call."""
     from repro_torch.harith import hlu
+    from repro_torch.kernels.batched_recompress.kernel import batched_recompress_cuda
+    from repro_torch.kernels.batched_recompress.ops import GRAM_TOL_FLOOR
     orig = hlu._kernels
-    names = ("batched_block_cholesky", "batched_trsm_panels", "batched_schur_dense",
-             "batched_recompress")
+    names = ("batched_block_cholesky", "batched_trsm_panels", "batched_schur_dense")
 
     def wrap(fn, name):
         def call(*args):
@@ -1338,7 +1345,41 @@ def timed_hlu_kernels(events: dict):
             return y
         return call
 
-    return lambda use_kernels: tuple(wrap(f, n) for f, n in zip(orig(use_kernels), names))
+    def retruncate(u, v, tol, kp):
+        require(tol >= GRAM_TOL_FLOOR, f"H-LU re-truncation at tol {tol} takes the oracle route")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        u2, v2, _, _, sweeps = batched_recompress_cuda(u, v, tol)
+        end.record()
+        events.setdefault("batched_recompress", []).append((start, end))
+        zero = (u.abs().amax(dim=(1, 2)) == 0) | (v.abs().amax(dim=(1, 2)) == 0)
+        retruncations.append((u.shape[0], u.shape[1], v.shape[1], u.shape[2], zero, sweeps))
+        return u2[:, :, :kp], v2[:, :, :kp]
+
+    return lambda use_kernels: (tuple(wrap(f, n) for f, n in zip(orig(use_kernels), names))
+                                + (retruncate,))
+
+
+def retruncation_work(retruncations: list) -> dict:
+    """#8's H-LU calls: blocks, all-zero blocks, the sweeps the real blocks
+    ran, and the bound from ``recompress_work`` over this run's calls (the
+    zero blocks read and write their panels and need no operations)."""
+    rows, nbytes, ops = [], 0.0, 0.0
+    for b, m, n, k, zero, sweeps in retruncations:
+        z = int(zero.sum())
+        sw = float(sweeps[~zero].double().sum())
+        b_, o_ = recompress_work(b - z, m, n, k, sw)
+        nbytes += b_ + 4.0 * 2 * z * (m + n) * k
+        ops += o_
+        rows.append({"B": b, "real": b - z, "zero": z,
+                     "sweeps_mean": sw / (b - z) if b > z else 0.0})
+    real = sum(r["real"] for r in rows)
+    bms, by = bound_ms(nbytes, ops)
+    return {"calls": len(rows), "blocks": sum(r["B"] for r in rows), "real": real,
+            "zero": sum(r["zero"] for r in rows),
+            "sweeps_mean_real": sum(r["sweeps_mean"] * r["real"] for r in rows) / max(real, 1),
+            "bound_s": bms / 1e3, "bound_by": by, "bound_bytes": nbytes, "bound_ops": ops,
+            "per_call": rows}
 
 
 def tf32_hlu_factorization(hm):
@@ -1427,8 +1468,9 @@ def run_hlu_measurements(hm, pre, f, rng, out):
     from repro_torch.solve import make_solver
     res = out["hlu"]
     events: dict = {}
+    retruncations: list = []
     orig = hlu._kernels
-    hlu._kernels = timed_hlu_kernels(events)
+    hlu._kernels = timed_hlu_kernels(events, retruncations)
     try:
         timed, t_timed = wall_s(lambda: factorize_hlu(hm, 1e-2, tol=1e-3))
     finally:
@@ -1440,6 +1482,11 @@ def run_hlu_measurements(hm, pre, f, rng, out):
                                               (timed.vlr, pre.factors.vlr)))
     res["setup_split_s"] = split
     res["setup_split_calls"] = calls
+    res["retruncation"] = rt = retruncation_work(retruncations)
+    log(f"[H-LU] #8 re-truncation: {rt['calls']} calls, {rt['blocks']} blocks ({rt['real']} "
+        f"real, {rt['zero']} all-zero), Jacobi sweeps mean {rt['sweeps_mean_real']:.3f} on the "
+        f"real blocks; {split['batched_recompress']:.4f} s against a bound of "
+        f"{rt['bound_s']:.4f} s ({rt['bound_by']})")
     res["timed_factorization_s"] = t_timed
     res["factorizations_bit_identical"] = same
     log(f"[H-LU] timed factorization {t_timed:.3f} s; kernel seconds {split} over calls "

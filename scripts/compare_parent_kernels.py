@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Hold this checkout's batched ACA (#3) and dense-leaf product (#2) against
-an earlier checkout's, on the card: bits and times.
+"""Hold this checkout's batched ACA (#3), dense-leaf product (#2),
+recompression (#8) and H-attention near field (#11) against an earlier
+checkout's, on the card: bits or ranks, and times.
 
-    python3 scripts/compare_parent_kernels.py PARENT_DIR
+    python3 scripts/compare_parent_kernels.py PARENT_DIR [--kernels 2,3,8,11] [--end-to-end]
 
 PARENT_DIR is another checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked under ``build/``).  Its
-``src/repro_torch/csrc/aca.cu`` and ``dense_matmat.cu`` are built with nvcc
-into ``build/parent_kernels/`` and called through their own C entries
-(``repro_batched_aca`` with a ``(B, m)`` residual scratch and no route;
-``repro_dense_matmat`` on gathered blocks).  On problems P (N = 2^20,
-c_leaf = 2048) and K (N = 2^15 x 32, c_leaf = 256):
+``src/repro_torch/csrc/aca.cu``, ``dense_matmat.cu``, ``recompress.cu`` and
+``hattention_nearfield.cu`` are built with nvcc into ``build/parent_kernels/``
+and called through their own C entries (``repro_batched_aca`` with a
+``(B, m)`` residual scratch and no route; ``repro_dense_matmat`` on gathered
+blocks; ``repro_batched_recompress`` and ``repro_hattention_nearfield``,
+whose signatures are this checkout's).  ``--kernels`` picks the kernels
+compared (default all four).  On problems P (N = 2^20, c_leaf = 2048) and
+K (N = 2^15 x 32, c_leaf = 256):
 
 * #3, every level group: U, V and the pivot keys of up to 8 sampled blocks
   from the parent's kernel and from this checkout's, on the picked route
@@ -26,7 +30,21 @@ c_leaf = 2048) and K (N = 2^15 x 32, c_leaf = 256):
   leaves are timed, and the SASS of this checkout's kernel
   (``cuobjdump -sass``) gives the instructions it issues per block entry:
   the length of its innermost loop over the MUFU.EX2 (one exp per entry)
-  in it.
+  in it;
+* #8, parent and this checkout in turns, on P's 7 factor-store groups at
+  tol 1e-2 (as the memory tier runs them), on one (2048, 256, 64) batch
+  with half its blocks zero (H-LU's typical re-truncation) and on the wide
+  (8192, 256, 64) check, both with a geometric sigma decay at tol 1e-3:
+  the ranks must be the parent's on every block away from the cut (no
+  singular value within 5% of tol x sigma_0, from a float64 QR + SVD);
+* #11, parent and this checkout in turns, at both ``NEARFIELD_SHAPES`` of
+  ``chip_smoke.py`` on random q, k, v: m within 1e-5 of the parent's, num
+  and den within 1e-4 (relative);
+* with ``--end-to-end``: K's H-LU setup (a timed ``factorize_hlu`` after a
+  first one, with #8's share by CUDA events around each re-truncation) and
+  the LM's prefill of 2 x 8,192 tokens (qwen2.5-14b-hmatrix, 48 layers,
+  bf16, random weights; a timed prefill after a first one), each in its
+  own process on the parent's package and on this checkout's, in turns.
 
 Exits non-zero on a difference.  Writes ``chiprun_out/compare_parent_kernels.json``.
 """
@@ -43,9 +61,14 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+from chip_smoke import NEARFIELD_SHAPES  # noqa: E402
 SEED = 0
 _OLD_ACA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 _DENSE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_RECOMPRESS_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
+_NEARFIELD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def build_parent(parent: Path) -> dict:
@@ -56,7 +79,7 @@ def build_parent(parent: Path) -> dict:
     procs = {name: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
                                      str(out / f"lib{name}.so"), str(csrc / f"{name}.cu")],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name in ("aca", "dense_matmat")}
+             for name in ("aca", "dense_matmat", "recompress", "hattention_nearfield")}
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -67,7 +90,13 @@ def build_parent(parent: Path) -> dict:
     fn.argtypes, fn.restype = _OLD_ACA_ARGTYPES, ctypes.c_int
     dense = libs["dense_matmat"].repro_dense_matmat
     dense.argtypes, dense.restype = _DENSE_ARGTYPES, ctypes.c_int
-    return {"aca": fn, "dense": dense}
+    rc = libs["recompress"].repro_batched_recompress
+    rc.argtypes, rc.restype = _RECOMPRESS_ARGTYPES, ctypes.c_int
+    splits = libs["recompress"].repro_recompress_splits
+    splits.argtypes, splits.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    nf = libs["hattention_nearfield"].repro_hattention_nearfield
+    nf.argtypes, nf.restype = _NEARFIELD_ARGTYPES, ctypes.c_int
+    return {"aca": fn, "dense": dense, "recompress": rc, "splits": splits, "nearfield": nf}
 
 
 def parent_aca(fn, points, rid, cid, m, k):
@@ -231,27 +260,224 @@ def compare_dense(parent, name, hm, rng, rec) -> bool:
     return same and rel <= 1e-5
 
 
+def parent_recompress(parent, u, v, tol):
+    """The parent's #8 through its C entry: (u2, v2, s, ranks, sweeps)."""
+    from repro_torch import _build
+    from repro_torch.kernels import stream_handle
+    b, m, k = u.shape
+    n, dev = v.shape[1], u.device
+    u2, v2 = torch.empty_like(u), torch.empty_like(v)
+    s = torch.empty((b, k), device=dev)
+    ranks = torch.empty((b,), dtype=torch.int32, device=dev)
+    sweeps = torch.empty((b,), dtype=torch.int32, device=dev)
+    part = torch.empty((2 * b * parent["splits"](m, n) * k * k,), device=dev)
+    tmat = torch.empty((2 * b * k * k,), device=dev)
+    err = parent["recompress"](u.data_ptr(), v.data_ptr(), u2.data_ptr(), v2.data_ptr(),
+                               s.data_ptr(), ranks.data_ptr(), sweeps.data_ptr(),
+                               part.data_ptr(), tmat.data_ptr(), b, m, n, k, float(tol),
+                               stream_handle(dev))
+    _build.check(err, "parent batched_recompress")
+    return u2, v2, s, ranks, sweeps
+
+
+def near_cut(u, v, tol: float, margin: float = 0.05, chunk: int = 256) -> torch.Tensor:
+    """Blocks with a singular value of U V^T within ``margin`` (relative) of
+    tol x sigma_0, from a float64 QR + SVD: their rank may fall either way."""
+    out = []
+    for b0 in range(0, u.shape[0], chunk):
+        _, ru = torch.linalg.qr(u[b0:b0 + chunk].double())
+        _, rv = torch.linalg.qr(v[b0:b0 + chunk].double())
+        s = torch.linalg.svdvals(ru @ rv.transpose(1, 2))
+        rel = s / s[:, :1].clamp_min(1e-300)
+        out.append(((rel > tol / (1 + margin)) & (rel < tol * (1 + margin))).any(dim=1))
+    return torch.cat(out)
+
+
+def compare_recompress(parent, label, u, v, tol, rec) -> bool:
+    """#8 against the parent's on one batch: ranks away from the cut, times
+    in turns."""
+    from repro_torch.kernels.batched_recompress.kernel import batched_recompress_cuda
+    _, _, _, r_par, sw_par = parent_recompress(parent, u, v, tol)
+    _, _, _, r_new, sw_new = batched_recompress_cuda(u, v, tol)
+    cut = near_cut(u, v, tol)
+    same = r_par == r_new
+    t_par, t_new = in_turns(lambda: parent_recompress(parent, u, v, tol),
+                            lambda: batched_recompress_cuda(u, v, tol))
+    zero = (u.abs().amax(dim=(1, 2)) == 0) | (v.abs().amax(dim=(1, 2)) == 0)
+    row = {"B": int(u.shape[0]), "m": int(u.shape[1]), "k": int(u.shape[2]), "tol": tol,
+           "zero_blocks": int(zero.sum()), "near_cut": int(cut.sum()),
+           "other_rank_away_from_cut": int((~same & ~cut).sum()),
+           "other_rank_near_cut": int((~same & cut).sum()),
+           "sweeps_mean_parent": float(sw_par.double().mean()),
+           "sweeps_mean": float(sw_new.double().mean()), "parent_ms": t_par, "ms": t_new}
+    rec[f"recompress_{label}"] = row
+    print(f"[#8 {label}] {row}", flush=True)
+    return row["other_rank_away_from_cut"] == 0
+
+
+def decaying(b: int, m: int, k: int, gen) -> tuple:
+    scale = 0.35 ** torch.arange(k, device="cuda", dtype=torch.float32)
+    return (torch.randn(b, m, k, device="cuda", generator=gen) * scale,
+            torch.randn(b, m, k, device="cuda", generator=gen))
+
+
+def compare_nearfield(parent, label, shape, gen, rec) -> bool:
+    """#11 against the parent's on random q, k, v: m within 1e-5, num and den
+    within 1e-4 (relative), times in turns."""
+    from repro_torch import _build
+    from repro_torch.kernels import stream_handle
+    from repro_torch.kernels.hattention_block.kernel import hattention_nearfield_cuda
+    bh, nl, c, d = shape
+    q = torch.randn(bh, nl, c, d, generator=gen, device="cuda") / d ** 0.5
+    k = torch.randn(bh, nl, c, d, generator=gen, device="cuda")
+    v = torch.randn(bh, nl, c, d, generator=gen, device="cuda")
+    num, den, m = torch.empty_like(q), q.new_empty((bh, nl, c)), q.new_empty((bh, nl, c))
+
+    def par():
+        _build.check(parent["nearfield"](q.data_ptr(), k.data_ptr(), v.data_ptr(), num.data_ptr(),
+                                         den.data_ptr(), m.data_ptr(), bh, nl, c, d,
+                                         stream_handle(q.device)), "parent hattention_nearfield")
+
+    par()
+    got = hattention_nearfield_cuda(q, k, v)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm((a - b).double()) / torch.linalg.vector_norm(b.double()))
+    row = {"shape": list(shape), "m_max_abs_diff": float((got[2] - m).abs().max()),
+           "num_rel_diff": rel(got[0], num), "den_rel_diff": rel(got[1], den)}
+    row["parent_ms"], row["ms"] = in_turns(par, lambda: hattention_nearfield_cuda(q, k, v))
+    rec[f"nearfield_{label}"] = row
+    print(f"[#11 {label}] {row}", flush=True)
+    return (row["m_max_abs_diff"] <= 1e-5 and row["num_rel_diff"] <= 1e-4
+            and row["den_rel_diff"] <= 1e-4)
+
+
+# One process's end-to-end measurement, run with PYTHONPATH at one
+# checkout's src/ and that checkout as the working directory (its kernels
+# build under its own build/): prints one JSON line.
+_END_TO_END = r"""
+import json, time, torch
+from repro_torch.core import build_hmatrix, halton
+from repro_torch.harith import factorize_hlu, hlu
+
+def wall(fn):
+    torch.cuda.synchronize(); t0 = time.perf_counter(); out = fn(); torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+hm = build_hmatrix(halton(1 << 15, 2, device="cuda") * 32.0, "gaussian", k=16, c_leaf=256,
+                   eta=1.5, precompute=True)
+factorize_hlu(hm, 1e-2, tol=1e-3)
+events = []
+orig = hlu._kernels
+
+def timed(use_kernels):
+    fns = orig(use_kernels)
+
+    def retruncate(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(); out = fns[3](*args); end.record()
+        events.append((start, end))
+        return out
+    return fns[:3] + (retruncate,)
+
+hlu._kernels = timed
+_, setup_s = wall(lambda: factorize_hlu(hm, 1e-2, tol=1e-3))
+hlu._kernels = orig
+recompress_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
+del hm
+torch.cuda.empty_cache()
+from repro_torch.configs.registry import get_arch
+from repro_torch.models.api import get_model
+from repro_torch.serve.step import make_prefill_step
+cfg = get_arch("qwen2.5-14b-hmatrix")
+gen = torch.Generator(device="cuda").manual_seed(0)
+params = get_model(cfg)["init_params"](gen)
+prompts = torch.randint(0, cfg.vocab_size, (2, 8192), generator=gen, device="cuda")
+prefill = make_prefill_step(cfg)
+wall(lambda: prefill(params, prompts))
+_, prefill_s = wall(lambda: prefill(params, prompts))
+print(json.dumps({"hlu_setup_s": setup_s, "hlu_recompress_s": recompress_s,
+                  "hlu_recompress_calls": len(events), "prefill_s": prefill_s}))
+"""
+
+
+def end_to_end(parent_dir: Path, rec) -> None:
+    """K's H-LU setup and the LM prefill, parent and this checkout in turns
+    (parent, new, new, parent), one process each."""
+    import os
+    runs = []
+    for label, root in (("parent", parent_dir), ("new", ROOT), ("new", ROOT),
+                        ("parent", parent_dir)):
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        out = subprocess.run([sys.executable, "-c", _END_TO_END], cwd=root, env=env,
+                             check=True, capture_output=True, text=True).stdout
+        row = json.loads(out.strip().splitlines()[-1])
+        row["checkout"] = label
+        runs.append(row)
+        print(f"[end to end {label}] {row}", flush=True)
+    rec["end_to_end"] = runs
+
+
 def main() -> int:
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("parent_dir")
+    parser.add_argument("--kernels", default="2,3,8,11")
+    parser.add_argument("--end-to-end", action="store_true")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
+    picked = set(args.kernels.split(","))
     from repro_torch.core import build_hmatrix, halton
-    parent = build_parent(Path(sys.argv[1]).resolve())
+    parent = build_parent(Path(args.parent_dir).resolve())
     rng = np.random.RandomState(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     from repro_torch import _build
     rec = {"card": torch.cuda.get_device_name(0)}
     info = _build.build_all()
-    rec["dense_sass"] = sass_per_entry(Path(info["dir"]) / "libdense_matmat.so",
-                                       "dense_matmat_kernelILi2ELi0ELi8E")
-    print(f"[#2 SASS] {rec['dense_sass']}", flush=True)
+    if "2" in picked:
+        rec["dense_sass"] = sass_per_entry(Path(info["dir"]) / "libdense_matmat.so",
+                                           "dense_matmat_kernelILi2ELi0ELi8E")
+        print(f"[#2 SASS] {rec['dense_sass']}", flush=True)
     ok = True
-    for name, n, scale, c_leaf in (("P", 1 << 20, 1.0, 2048), ("K", 1 << 15, 32.0, 256)):
+    problems = (("P", 1 << 20, 1.0, 2048), ("K", 1 << 15, 32.0, 256))
+    for name, n, scale, c_leaf in problems if picked & {"2", "3", "8"} else ():
+        if name == "K" and not picked & {"2", "3"}:
+            continue
         hm = build_hmatrix(halton(n, 2, device="cuda") * scale, "gaussian", k=16,
-                           c_leaf=c_leaf, eta=1.5)
-        ok &= compare_aca(parent, name, hm, rng, rec)
-        ok &= compare_dense(parent, name, hm, rng, rec)
+                           c_leaf=c_leaf, eta=1.5, precompute="8" in picked and name == "P")
+        if "3" in picked:
+            ok &= compare_aca(parent, name, hm, rng, rec)
+        if "2" in picked:
+            ok &= compare_dense(parent, name, hm, rng, rec)
+        if "8" in picked and name == "P":
+            par_ms = new_ms = 0.0
+            for level in sorted(hm.factors.keys()):
+                u, v = hm.factors[level]
+                ok &= compare_recompress(parent, f"P_level_{level}", u, v, 1e-2, rec)
+                par_ms += rec[f"recompress_P_level_{level}"]["parent_ms"]
+                new_ms += rec[f"recompress_P_level_{level}"]["ms"]
+                torch.cuda.empty_cache()
+            rec["recompress_P_store"] = {"parent_ms": par_ms, "ms": new_ms}
+            print(f"[#8 P store, 7 groups] parent {par_ms:.3f} ms, this checkout {new_ms:.3f} ms",
+                  flush=True)
         del hm
         torch.cuda.empty_cache()
+    if "8" in picked:
+        u, v = decaying(2048, 256, 64, gen)
+        u[1::2] = 0.0
+        ok &= compare_recompress(parent, "hlu_B2048_half_zero", u, v, 1e-3, rec)
+        u, v = decaying(8192, 256, 64, gen)
+        ok &= compare_recompress(parent, "wide_8192", u, v, 1e-3, rec)
+        del u, v
+        torch.cuda.empty_cache()
+    if "11" in picked:
+        for label, shape in NEARFIELD_SHAPES.items():
+            ok &= compare_nearfield(parent, label, shape, gen, rec)
+            torch.cuda.empty_cache()
+    if args.end_to_end:
+        end_to_end(Path(args.parent_dir).resolve(), rec)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "compare_parent_kernels.json").write_text(json.dumps(rec, indent=1))
     print(json.dumps({"ok": ok}))

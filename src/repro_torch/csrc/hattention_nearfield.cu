@@ -19,230 +19,246 @@
 // that is 247 GFLOP against ~1.3 GB of q, k, v, num, den and m.  fp32 with
 // no TF32 (the reference's tolerance and the repo's numerics rule).
 //
-// Design, simple first: one CTA of 256 threads per (bh, leaf, 64-row query
-// tile).  The CTA walks 64-row key tiles: those of leaf i-1 (read in place at
-// its offset, never copied), then those of leaf i up to its own diagonal tile
-// (tiles wholly above the diagonal contribute exp(-1e30 - m) = 0 in the
-// reference and are skipped).  Two passes: pass 1 takes the exact row max
-// over every visible score, pass 2 recomputes the scores with the same code
-// (so bit for bit the same), forms p = exp(s - m) and accumulates den and num
-// in registers.  No online rescaling enters num, no atomics, each output row
-// is written once: results do not depend on scheduling.  Each thread owns a
-// 4 x 4 score tile (rows ty + 16 i, columns tx + 16 j) and a 4 x D/16 slice
-// of num; row reductions are shuffles across the 16 threads of a row.  Shared
-// memory: q, k and v tiles at row stride D + 4 (conflict-free float4 reads),
-// the p tile aliased onto the k tile: 99 KB at D = 128, two CTAs per SM.
+// Design: one online pass.  A CTA of 8 warps owns 128 query rows of one
+// (bh, leaf); each warp owns 16 of them, so everything a row needs stays in
+// its warp.  The CTA walks 64-row key tiles: those of leaf i-1 (read in
+// place at its offset, never copied), then those of leaf i up to its own
+// diagonal (tiles wholly above the diagonal contribute exp(-1e30 - m) = 0
+// in the reference and are skipped; a warp whose rows see none of a tile
+// skips its products).  Key and value tiles come through a double-buffered
+// cp.async ring, one CTA barrier per tile: the next tile loads while this
+// one is computed.  Lane (r, c) of a warp (r = lane / 8, c = lane % 8)
+// holds the scores of its 4 rows (r + 4 i) against 8 keys (c + 8 j) and
+// the 4 x D/8 slice of num for those rows (columns in 16-byte runs at
+// 4 c + 32 e, read conflict-free from the value tile).  Per tile: the
+// scores, the tile's row max (a shuffle across the 8 lanes of a row),
+// m_new = max(m, tile max), num and den rescaled by exp(m - m_new), p =
+// exp(s - m_new), and num += p V with each p handed to the lanes of its row
+// by a shuffle (p never leaves the registers).  The final m is the exact
+// max of every visible score; num and den differ from the two-pass
+// formulation by rounding only.  No atomics, each output row written once,
+// den summed over the 8 lanes of a row in a fixed order: results do not
+// depend on scheduling.  Shared memory at D = 128: q tile 128 x 132, two
+// key tiles 64 x 132, two value tiles 64 x 128 floats (200,704 B): one CTA
+// of 256 threads per SM.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TQ = 64;   // query rows per CTA
+constexpr int TQ = 128;  // query rows per CTA
 constexpr int TK = 64;   // key rows per tile
 constexpr int NT = 256;
-constexpr int LP = TK + 4;  // row stride of the p tile
 constexpr float NEG = -1e30f;
 
 template <int D>
 struct Layout {
-  static constexpr int LD = D + 4;  // row stride of the q, k, v tiles
-  static constexpr int KP = (TK * LD > TQ * LP) ? TK * LD : TQ * LP;  // k tile / p tile
-  static constexpr int FLOATS = TQ * LD + KP + TK * LD;
+  static constexpr int LDQ = D + 4;  // row stride of the q and k tiles (conflict-free float4 reads)
+  static constexpr int LDV = D;      // row stride of the value tiles
+  static constexpr int Q = TQ * LDQ;
+  static constexpr int KT = TK * LDQ;
+  static constexpr int VT = TK * LDV;
+  static constexpr int FLOATS = Q + 2 * KT + 2 * VT;
+  static constexpr int VW = D >= 32 ? 4 : 2;    // num columns per contiguous run
+  static constexpr int NE = D / 8 / VW;         // runs per lane
 };
 
-// rows x D floats, contiguous at src, into dst at row stride D + 4; rows past
-// `rows` are zero-filled.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;     // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// rows x D floats, contiguous at src, into dst at row stride ld; rows past
+// `valid` are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int rows) {
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* __restrict__ src,
+                                          int rows, int valid) {
   constexpr int V4 = D / 4;
-  for (int t = threadIdx.x; t < TK * V4; t += NT) {
+  for (int t = threadIdx.x; t < rows * V4; t += NT) {
     const int r = t / V4, c4 = t - (t / V4) * V4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) x = reinterpret_cast<const float4*>(src)[(size_t)r * V4 + c4];
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c4 * 4) = x;
+    const bool ok = r < valid;
+    cp_async16(dst + r * ld + c4 * 4, ok ? src + (size_t)r * D + c4 * 4 : src, ok);
   }
-}
-
-// s[i][j] = q[ty + 16 i] . k[tx + 16 j], summed over d in ascending order.
-template <int D>
-__device__ __forceinline__ void tile_scores(const float* Qs, const float* Ks, int tx, int ty,
-                                            float s[4][4]) {
-  constexpr int LD = Layout<D>::LD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-      }
-  }
-}
-
-// Key tile t of a CTA: tiles 0 .. nkt-1 of leaf i-1 (when leaf > 0), then
-// tiles 0 .. qt of leaf i.
-struct KeyTile {
-  size_t off;   // element offset of the tile's first row in k / v
-  int rows;     // valid key rows
-  bool causal;  // the diagonal tile: key col visible iff col <= query row
-};
-
-__device__ __forceinline__ KeyTile key_tile(int t, size_t leaf_off, size_t prev_off, bool has_prev,
-                                            int nkt, int qt, int c, int D) {
-  KeyTile kt;
-  int tile;
-  if (has_prev && t < nkt) {
-    tile = t;
-    kt.off = prev_off + (size_t)tile * TK * D;
-    kt.causal = false;
-  } else {
-    tile = has_prev ? t - nkt : t;
-    kt.off = leaf_off + (size_t)tile * TK * D;
-    kt.causal = tile == qt;
-  }
-  kt.rows = min(TK, c - tile * TK);
-  return kt;
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, 1)
 nearfield_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ num, float* __restrict__ den,
                  float* __restrict__ mout, int nl, int c, int nqt) {
+  using L = Layout<D>;
+  constexpr int VW = L::VW, NE = L::NE;
   extern __shared__ __align__(16) float smem[];
-  constexpr int LD = Layout<D>::LD;
-  constexpr int DC = D / 16;               // num columns per thread
-  constexpr int CW = DC < 4 ? DC : 4;      // contiguous run of them
-  constexpr int NG = DC / CW;              // runs: column g * 16 CW + tx CW + e
   float* Qs = smem;
-  float* Ks = smem + TQ * LD;
-  float* Ps = Ks;                          // pass 2: p tile over the k tile
-  float* Vs = Ks + Layout<D>::KP;
+  float* Ks = Qs + L::Q;          // two key tiles
+  float* Vs = Ks + 2 * L::KT;     // two value tiles
 
-  const int qt = blockIdx.x % nqt;
-  const long long bl = blockIdx.x / nqt;   // bh * nl + leaf
+  const int qt = nqt - 1 - (int)(blockIdx.x % nqt);   // the longest query tiles first
+  const long long bl = blockIdx.x / nqt;              // bh * nl + leaf
   const int leaf = (int)(bl % nl);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lr = lane >> 3, lc = lane & 7;
   const size_t leaf_off = (size_t)bl * c * D;
-  const size_t prev_off = leaf_off - (size_t)c * D;
   const bool has_prev = leaf > 0;
   const int q0 = qt * TQ;
-  const int nkt = nqt;
-  const int n_tiles = (has_prev ? nkt : 0) + qt + 1;
+  const int nkt = (c + TK - 1) / TK;
+  const int q_last = min(q0 + TQ, c) - 1;
+  const int n_prev = has_prev ? nkt : 0;
+  const int n_tiles = n_prev + q_last / TK + 1;
+  const int w0 = q0 + 16 * warp;                      // the warp's first row
+  const int w_last = min(w0 + 15, c - 1);
 
-  load_tile<D>(Qs, q + leaf_off + (size_t)q0 * D, min(TQ, c - q0));
+  auto tile_src = [&](int t, int* rows, int* tile) {
+    const bool prev = t < n_prev;
+    *tile = prev ? t : t - n_prev;
+    *rows = min(TK, c - *tile * TK);
+    return prev ? leaf_off - (size_t)c * D + (size_t)(*tile) * TK * D
+                : leaf_off + (size_t)(*tile) * TK * D;
+  };
 
-  // pass 1: the exact row max over every visible score
-  float rmax[4] = {NEG, NEG, NEG, NEG};
-  for (int t = 0; t < n_tiles; ++t) {
-    const KeyTile kt = key_tile(t, leaf_off, prev_off, has_prev, nkt, qt, c, D);
-    __syncthreads();
-    load_tile<D>(Ks, k + kt.off, kt.rows);
-    __syncthreads();
-    float s[4][4];
-    tile_scores<D>(Qs, Ks, tx, ty, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const bool vis = col < kt.rows && (!kt.causal || col <= ty + 16 * i);
-        if (vis) rmax[i] = fmaxf(rmax[i], s[i][j]);
-      }
+  load_tile<D>(Qs, L::LDQ, q + leaf_off + (size_t)q0 * D, TQ, min(TQ, c - q0));
+  {
+    int rows, tile;
+    const size_t off = tile_src(0, &rows, &tile);
+    load_tile<D>(Ks, L::LDQ, k + off, TK, rows);
+    load_tile<D>(Vs, L::LDV, v + off, TK, rows);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      rmax[i] = fmaxf(rmax[i], __shfl_xor_sync(0xffffffffu, rmax[i], off));
+  cp_async_commit();
 
-  // pass 2: p = exp(s - m), den and num
-  float rden[4] = {0.f, 0.f, 0.f, 0.f};
-  float acc[4][DC];
+  float m[4], rden[4], acc[4][NE * VW];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG;
+    rden[i] = 0.0f;
 #pragma unroll
-    for (int e = 0; e < DC; ++e) acc[i][e] = 0.0f;
+    for (int e = 0; e < NE * VW; ++e) acc[i][e] = 0.0f;
+  }
+
   for (int t = 0; t < n_tiles; ++t) {
-    const KeyTile kt = key_tile(t, leaf_off, prev_off, has_prev, nkt, qt, c, D);
-    __syncthreads();
-    load_tile<D>(Ks, k + kt.off, kt.rows);
-    load_tile<D>(Vs, v + kt.off, kt.rows);
-    __syncthreads();
-    float s[4][4];
-    tile_scores<D>(Qs, Ks, tx, ty, s);
-    __syncthreads();                       // every read of Ks is done: Ps may overwrite it
+    cp_async_wait_all();
+    __syncthreads();     // tile t is in; every warp is done with tile t - 1's buffers
+    if (t + 1 < n_tiles) {
+      int rows, tile;
+      const size_t off = tile_src(t + 1, &rows, &tile);
+      load_tile<D>(Ks + ((t + 1) & 1) * L::KT, L::LDQ, k + off, TK, rows);
+      load_tile<D>(Vs + ((t + 1) & 1) * L::VT, L::LDV, v + off, TK, rows);
+      cp_async_commit();
+    }
+    int rows, tile;
+    tile_src(t, &rows, &tile);
+    const bool causal = t >= n_prev;
+    // a warp with no valid row, or whose rows all lie above this own tile, skips it
+    if (w0 >= c || (causal && tile * TK > w_last)) continue;
+    const float* Kb = Ks + (t & 1) * L::KT;
+    const float* Vb = Vs + (t & 1) * L::VT;
+
+    // s[i][j] = q[row i] . k[key lc + 8 j], summed over d in ascending order
+    float s[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const bool vis = col < kt.rows && (!kt.causal || col <= ty + 16 * i);
-        const float p = vis ? expf(s[i][j] - rmax[i]) : 0.0f;
-        rden[i] += p;
-        Ps[(ty + 16 * i) * LP + col] = p;
-      }
-    __syncthreads();
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
 #pragma unroll 2
-    for (int kk = 0; kk < TK; kk += 4) {
-      float4 p4[4];
+    for (int d = 0; d < D; d += 4) {
+      float4 a[4], b[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p4[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * LP + kk);
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(Qs + (16 * warp + lr + 4 * i) * L::LDQ + d);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = Vs + (kk + u) * LD + tx * CW;
-        float vv[DC];
+      for (int j = 0; j < 8; ++j)
+        b[j] = *reinterpret_cast<const float4*>(Kb + (lc + 8 * j) * L::LDQ + d);
 #pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          if constexpr (CW == 4) {
-            const float4 x = *reinterpret_cast<const float4*>(vrow + g * 16 * CW);
-            vv[g * CW] = x.x; vv[g * CW + 1] = x.y; vv[g * CW + 2] = x.z; vv[g * CW + 3] = x.w;
-          } else if constexpr (CW == 2) {
-            const float2 x = *reinterpret_cast<const float2*>(vrow + g * 16 * CW);
-            vv[g * CW] = x.x; vv[g * CW + 1] = x.y;
-          } else {
-            vv[g] = vrow[g * 16];
-          }
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        }
+    }
+
+    // online softmax: the tile's row max, rescale, p = exp(s - m_new)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = w0 + lr + 4 * i;
+      float tmax = NEG;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = lc + 8 * j;
+        const bool vis = col < rows && (!causal || tile * TK + col <= row);
+        s[i][j] = vis ? s[i][j] : NEG;
+        tmax = fmaxf(tmax, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float mnew = fmaxf(m[i], tmax);
+      const float alpha = expf(m[i] - mnew);
+      m[i] = mnew;
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = s[i][j] > NEG ? expf(s[i][j] - mnew) : 0.0f;
+        s[i][j] = p;
+        psum += p;
+      }
+      rden[i] = fmaf(rden[i], alpha, psum);
+#pragma unroll
+      for (int e = 0; e < NE * VW; ++e) acc[i][e] *= alpha;
+    }
+
+    // num += p V: key 8 j + o's p comes from lane (lr, o), slot j
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      float pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = __shfl_sync(0xffffffffu, s[i][j], (lane & ~7) | o);
+      const float* vrow = Vb + (8 * j + o) * L::LDV + VW * lc;
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        float vv[VW];
+        if constexpr (VW == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vrow + 8 * VW * e);
+          vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(vrow + 8 * VW * e);
+          vv[0] = x.x; vv[1] = x.y;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0 ? p4[i].x : u == 1 ? p4[i].y : u == 2 ? p4[i].z : p4[i].w;
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int e = 0; e < DC; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
-        }
+          for (int u = 0; u < VW; ++u) acc[i][e * VW + u] = fmaf(pv[i], vv[u], acc[i][e * VW + u]);
       }
     }
   }
+
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      rden[i] += __shfl_xor_sync(0xffffffffu, rden[i], off);
+    for (int off = 1; off < 8; off <<= 1) rden[i] += __shfl_xor_sync(0xffffffffu, rden[i], off);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+    const int r = w0 + lr + 4 * i;
     if (r >= c) continue;
     const size_t row = (size_t)bl * c + r;
-    float* out = num + row * D + tx * CW;
+    float* out = num + row * D + VW * lc;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < CW; ++e) out[g * 16 * CW + e] = acc[i][g * CW + e];
-    if (tx == 0) {
+    for (int e = 0; e < NE; ++e) {
+      if constexpr (VW == 4) {
+        *reinterpret_cast<float4*>(out + 8 * VW * e) =
+            make_float4(acc[i][4 * e], acc[i][4 * e + 1], acc[i][4 * e + 2], acc[i][4 * e + 3]);
+      } else {
+        *reinterpret_cast<float2*>(out + 8 * VW * e) = make_float2(acc[i][2 * e], acc[i][2 * e + 1]);
+      }
+    }
+    if (lc == 0) {
       den[row] = rden[i];
-      mout[row] = rmax[i];
+      mout[row] = m[i];
     }
   }
 }
@@ -253,10 +269,20 @@ int launch(const float* q, const float* k, const float* v, float* num, float* de
   const int nqt = (c + TQ - 1) / TQ;
   const long long blocks = (long long)bh * nl * nqt;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const int bytes = Layout<D>::FLOATS * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(nearfield_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
+  constexpr int bytes = Layout<D>::FLOATS * (int)sizeof(float);
+  if constexpr (bytes > 48 * 1024) {
+    // the cap on dynamic shared memory, set once per device (bit = device)
+    static unsigned long long raised = 0;
+    int dev = 0;
+    int err = (int)cudaGetDevice(&dev);
+    if (err) return err;
+    if (!(raised >> (dev & 63) & 1)) {
+      err = (int)cudaFuncSetAttribute(nearfield_kernel<D>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err) return err;
+      raised |= 1ull << (dev & 63);
+    }
+  }
   nearfield_kernel<D><<<(unsigned)blocks, NT, bytes, s>>>(q, k, v, num, den, m, nl, c, nqt);
   return (int)cudaGetLastError();
 }
@@ -264,7 +290,8 @@ int launch(const float* q, const float* k, const float* v, float* num, float* de
 }  // namespace
 
 // q, k, v, num: (bh, nl, c, d); den, m: (bh, nl, c); f32 contiguous, q
-// pre-scaled.  d in {16, 32, 64, 128} (cudaErrorInvalidValue otherwise).
+// pre-scaled, 16-byte aligned.  d in {16, 32, 64, 128} (cudaErrorInvalidValue
+// otherwise).
 extern "C" int repro_hattention_nearfield(const float* q, const float* k, const float* v,
                                           float* num, float* den, float* m, int bh, int nl,
                                           int c, int d, void* stream) {

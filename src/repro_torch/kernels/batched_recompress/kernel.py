@@ -15,7 +15,7 @@ from ... import _build
 from .. import require_cuda_f32, stream_handle
 
 MAX_K = 64
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -43,13 +43,16 @@ def batched_recompress_cuda(u: torch.Tensor, v: torch.Tensor, tol: float):
         return u2, v2, s, ranks, sweeps
     splits = _build.c_function("recompress", "repro_recompress_splits",
                                [ctypes.c_int, ctypes.c_int])(m, n)
+    log_floats = _build.c_function("recompress", "repro_recompress_log_floats",
+                                   [ctypes.c_int])(k)
     part = torch.empty((2 * b * splits * k * k,), dtype=torch.float32, device=dev)
     tmat = torch.empty((2 * b * k * k,), dtype=torch.float32, device=dev)
+    tlog = torch.empty((b * log_floats,), dtype=torch.float32, device=dev)
     fn = _build.c_function("recompress", "repro_batched_recompress", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(u.data_ptr(), v.data_ptr(), u2.data_ptr(), v2.data_ptr(), s.data_ptr(),
                  ranks.data_ptr(), sweeps.data_ptr(), part.data_ptr(), tmat.data_ptr(),
-                 b, m, n, k, float(tol), stream_handle(dev))
+                 tlog.data_ptr(), b, m, n, k, float(tol), stream_handle(dev))
     _build.check(err, what)
     _build.LAUNCHES[what] += 1
     return u2, v2, s, ranks, sweeps

@@ -26,7 +26,7 @@ def hattention_nearfield_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     bh, nl, c, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{what}: the kernel takes head dims {HEAD_DIMS}, got {d}")
-    if bh * nl * -(-c // 64) > 2 ** 31 - 1:
+    if bh * nl * -(-c // 128) > 2 ** 31 - 1:
         raise ValueError(f"{what}: {bh} x {nl} leaves of {c} rows exceed the kernel's grid")
     num = torch.empty_like(q)
     den = q.new_empty((bh, nl, c))

@@ -12,10 +12,13 @@ codes exactly equal, the ACA by the max error of ``U V^T`` against the
 block, within ``max(2 x the plain version's, 1e-4)`` (the two may pick
 other pivots on near-ties), and the recompression (Gram + Jacobi against
 the plain QR + SVD) by equal ranks or a reconstruction error within
-``2 tol`` of each block's Frobenius norm, the H-attention near field by
-``m`` within 1e-5 absolute and ``num``, ``den`` within 1e-4 relative (the
-JAX test's limits), and the LM's prefill through the kernel against the
-same prefill through the plain version on the card within 1e-4 relative.
+``2 tol`` of each block's Frobenius norm (also on H-LU's mix of all-zero,
+rank-deficient and decaying blocks at k in {1, 7, 16, 64}), the
+H-attention near field by ``m`` within 1e-5 absolute and ``num``, ``den``
+within 1e-4 relative (the JAX test's limits; also with a row max that
+rises in later key tiles), and the LM's prefill through the kernel against
+the same prefill through the plain version on the card within 1e-4
+relative.
 The ACA's two routes (resident, at every cluster size that fits, and
 streamed) must give the same bits, and the dense leaves' level entry the
 gathered entry's bits.  With TF32 on, every entry point raises for CUDA
@@ -359,6 +362,45 @@ def test_recompress_kernel_matches_plain_on_card(cuda_device, b, m, n, k, tol):
     assert _build.ORACLE_CALLS["batched_recompress"] == 1
 
 
+def _hlu_mix(b, m, k, seed):
+    """Blocks as H-LU re-truncates them: every third all-zero, every third a
+    rank-deficient concatenation [u | -u C] (k >= 2; C with orthonormal
+    columns, so the block's nonzero singular values stay within the Gram
+    route's fp32 resolution), the rest decaying."""
+    rng = _rs(seed)
+    u, v = _decaying(b, m, m, k, seed)
+    if k >= 2:
+        half = k // 2
+        u1 = rng.randn(b, m, half).astype(np.float32)
+        c = np.linalg.qr(rng.randn(b, k - half, k - half))[0][:, :half].astype(np.float32)
+        defic = torch.from_numpy(np.concatenate([u1, -u1 @ c], axis=2))
+        u[1::3] = defic[1::3]
+    u[::3] = 0.0
+    return u, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 16, 64])
+@pytest.mark.parametrize("b", [1, 5, 2048])
+def test_recompress_kernel_on_hlu_blocks_on_card(cuda_device, b, k):
+    from repro_torch.kernels.batched_recompress.kernel import batched_recompress_cuda
+    from repro_torch.kernels.batched_recompress.ref import batched_recompress_ref
+    tol = 1e-3
+    u, v = (t.to(cuda_device) for t in _hlu_mix(b, 256, k, seed=b + k))
+    u2, v2, s, ranks, sweeps = batched_recompress_cuda(u, v, tol)
+    ur, vr, r_ref = batched_recompress_ref(u, v, tol)
+    assert _recompress_ok(u, v, u2, v2, ranks, ur, vr, r_ref, tol)
+    zero = (u.abs().amax(dim=(1, 2)) == 0) | (v.abs().amax(dim=(1, 2)) == 0)
+    assert bool((ranks[zero] == 0).all()) and bool((s[zero] == 0).all())
+    assert bool(torch.isfinite(u2).all()) and bool(torch.isfinite(v2).all())
+    cols = torch.arange(k, device=cuda_device)
+    past = cols[None, None, :] >= ranks[:, None, None]
+    assert not bool((u2 * past).any()) and not bool((v2 * past).any())
+    assert bool((s[:, 1:] <= s[:, :-1]).all()) and bool(((sweeps >= 1) & (sweeps <= 8)).all())
+    again = batched_recompress_cuda(u, v, tol)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, (u2, v2, s, ranks, sweeps)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,c,p,shared,zero_pivot", [
     (3, 256, 256, True, False), (4, 256, 32, True, False), (2, 100, 13, False, False),
@@ -478,6 +520,31 @@ def test_hattention_nearfield_kernel_matches_plain_on_card(cuda_device, bh, nl, 
     assert _rel(den, den_r) <= 1e-4 and _rel(num, num_r) <= 1e-4
     again = hattention_nearfield_op(q, k, v)
     assert all(torch.equal(a, b) for a, b in zip(again, (num, den, m)))     # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 100, 512])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("nl", [1, 3])
+def test_hattention_nearfield_online_rescaling_on_card(cuda_device, c, d, nl):
+    """Keys whose mean grows along the sequence against a query with a
+    positive mean: a row's max rises in later key tiles, so the kernel's
+    rescaling of num and den runs."""
+    from repro_torch.kernels.hattention_block.kernel import hattention_nearfield_cuda
+    from repro_torch.kernels.hattention_block.ref import hattention_nearfield_ref
+    rng = _rs(c + d + nl)
+    bh = 2
+    pos = (np.arange(nl * c).reshape(nl, c) / (nl * c))[None, :, :, None]
+    q = torch.from_numpy(((rng.randn(bh, nl, c, d) + 1.0) / np.sqrt(d)).astype(np.float32))
+    k = torch.from_numpy((rng.randn(bh, nl, c, d) + 3.0 * pos).astype(np.float32))
+    v = torch.from_numpy(rng.randn(bh, nl, c, d).astype(np.float32))
+    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    num, den, m = hattention_nearfield_cuda(q, k, v)
+    num_r, den_r, m_r = hattention_nearfield_ref(q, k, v)
+    assert float((m - m_r).abs().max()) <= 1e-5
+    assert _rel(den, den_r) <= 1e-4 and _rel(num, num_r) <= 1e-4
+    again = hattention_nearfield_cuda(q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(again, (num, den, m)))
 
 
 @pytest.mark.cuda

@@ -195,3 +195,168 @@ def test_device_build_recompress_tol_equals_recompressing_its_store(use_kernels)
         assert torch.equal(hm.factors.rank_table(lv), flat.factors.rank_table(lv))
         for a, b in zip(hm.factors[lv], flat.factors[lv]):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# A float32 model of the CUDA kernel's chain (csrc/recompress.cu): the Gram
+# Cholesky factors with dropped pivots, the circle-method Jacobi pair order
+# with Z taken through the same rotations (the kernel's replay), the transforms
+# T_u = X_u (M . keep) and T_v = X_v (Z . keep), held to the QR + SVD
+# oracle by chip_smoke.check_recompress_group's criteria.
+# ---------------------------------------------------------------------------
+
+TINY = 1e-30
+
+
+def _pair_order(big_k):
+    """The kernel's rounds for K (a power of two) columns, the circle method:
+    lane j starts with columns (j, K-1-j); after each round position 0
+    stays, s0 moves down a lane, s1 up a lane, the last lane's s1 turns into
+    its s0 and lane 1's s0 into lane 0's s1."""
+    h = big_k // 2
+    s0, s1 = list(range(h)), [big_k - 1 - j for j in range(h)]
+    rounds = []
+    for _ in range(big_k - 1):
+        rounds.append(list(zip(s0, s1)))
+        if h > 1:
+            s0, s1 = ([s0[0]] + [s0[j + 1] for j in range(1, h - 1)] + [s1[h - 1]],
+                      [s0[1]] + [s1[j - 1] for j in range(1, h)])
+    return rounds
+
+
+def _cholesky_dropped(g, jit):
+    """The reference's right-looking Cholesky (rank-1 updates) in float32,
+    a pivot at or below max(jitter, TINY) dropped (its column zero)."""
+    k = g.shape[-1]
+    g, low = g.clone(), torch.zeros_like(g)
+    floor = jit.clamp(min=TINY)
+    for j in range(k):
+        d2 = g[:, j, j]
+        dinv = torch.where(d2 > floor, 1.0 / torch.sqrt(d2), torch.zeros_like(d2))
+        col = g[:, :, j] * dinv[:, None]
+        col[:, :j] = 0.0
+        low[:, :, j] = col
+        g = g - col[:, :, None] * col[:, None, :]
+    return low
+
+
+def _inv_upper(low):
+    """X = (L^T)^-1 by k-step back substitution; a zero pivot gives a zero
+    row and column of X."""
+    b, k, _ = low.shape
+    r = low.transpose(1, 2)
+    y = torch.eye(k).expand(b, k, k).clone()
+    for i in range(k - 1, -1, -1):
+        dd = r[:, i, i]
+        d = torch.where(dd.abs() > TINY, dd, torch.full_like(dd, TINY))
+        xi = torch.where((dd != 0)[:, None], y[:, i, :] / d[:, None], torch.zeros_like(y[:, i]))
+        y[:, :i, :] -= r[:, :i, i:i + 1] * xi[:, None, :]
+        y[:, i, :] = xi
+    return y
+
+
+def _kernel_model(u, v, tol):
+    """float32 model of csrc/recompress.cu -> (u2, v2, ranks, sweeps)."""
+    b, _, k = u.shape
+    big_k = max(2, 1 << (k - 1).bit_length())
+    gu, gv = u.transpose(1, 2) @ u, v.transpose(1, 2) @ v
+    ju = (1e-7 / k) * gu.diagonal(dim1=1, dim2=2).sum(1)
+    jv = (1e-7 / k) * gv.diagonal(dim1=1, dim2=2).sum(1)
+    eye = torch.eye(k)
+    lu = _cholesky_dropped(gu + ju[:, None, None] * eye, ju)
+    lv = _cholesky_dropped(gv + jv[:, None, None] * eye, jv)
+    mm = torch.zeros(b, big_k, big_k)
+    mm[:, :k, :k] = lu.transpose(1, 2) @ lv
+    zz = torch.eye(big_k).expand(b, big_k, big_k).clone()
+    active = torch.ones(b, dtype=torch.bool)
+    sweeps = torch.zeros(b, dtype=torch.int32)
+    rounds = _pair_order(big_k)
+    for _ in range(8):
+        rotated = torch.zeros(b, dtype=torch.bool)
+        for pairs in rounds:
+            p = torch.tensor([a for a, _ in pairs])
+            q = torch.tensor([c for _, c in pairs])
+            mp, mq = mm[:, :, p], mm[:, :, q]
+            app, aqq, apq = (mp * mp).sum(1), (mq * mq).sum(1), (mp * mq).sum(1)
+            rot = (apq.abs() > TINY) & active[:, None]
+            tau = (aqq - app) / (2.0 * torch.where(rot, apq, torch.ones_like(apq)))
+            t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+            c = torch.where(rot, 1.0 / torch.sqrt(1.0 + t * t), torch.ones_like(t))
+            s = torch.where(rot, c * t, torch.zeros_like(t))
+            mm[:, :, p] = c[:, None] * mp - s[:, None] * mq
+            mm[:, :, q] = s[:, None] * mp + c[:, None] * mq
+            zp, zq = zz[:, :, p], zz[:, :, q]
+            zz[:, :, p] = c[:, None] * zp - s[:, None] * zq
+            zz[:, :, q] = s[:, None] * zp + c[:, None] * zq
+            rotated |= rot.any(1)
+        sweeps += active.to(torch.int32)
+        active &= rotated
+        if not bool(active.any()):
+            break
+    mm = mm[:, :k, :k]
+    sig = torch.sqrt((mm * mm).sum(1))
+    keep = sig > tol * sig.amax(1, keepdim=True)
+    key = torch.where(keep, sig, torch.zeros_like(sig))
+    t_u = _inv_upper(lu) @ (mm * keep[:, None, :])
+    t_v = _inv_upper(lv) @ (zz[:, :k, :k] * keep[:, None, :])
+    order = torch.argsort(-key, dim=1, stable=True)[:, None, :].expand(-1, k, -1)
+    return (u @ torch.gather(t_u, 2, order), v @ torch.gather(t_v, 2, order),
+            keep.sum(1).to(torch.int32), sweeps)
+
+
+def _blocks(kind, b, m, k, seed):
+    """Decaying blocks, rank-deficient H-LU concatenations [u | -u C],
+    [w | x] (U's second half in the span of its first), or a mix of those
+    with all-zero blocks.  The deficient blocks' nonzero singular values
+    stay within the Gram route's fp32 resolution (~3e-4 of sigma_0), as
+    H-LU's do: below it the route parts from the QR + SVD oracle (the
+    parent kernel's chain as much as this one's)."""
+    rng = np.random.RandomState(seed)
+    if kind == "decaying":
+        return _decaying_factors(rng, b, m, m, k)
+    half = k // 2
+    u1 = rng.randn(b, m, half)
+    c = np.linalg.qr(rng.randn(b, k - half, k - half))[0][:, :half]
+    u = np.concatenate([u1, -u1 @ c], axis=2).astype(np.float32)
+    v = rng.randn(b, m, k).astype(np.float32)
+    if kind == "mixed":
+        du, dv = _decaying_factors(rng, b, m, m, k)
+        u[1::3], v[1::3] = du[1::3], dv[1::3]
+        u[::3] = 0.0
+    return u, v
+
+
+@pytest.mark.parametrize("big_k", [2, 4, 8, 16, 32, 64])
+def test_recompress_kernel_pair_order_meets_every_pair_once(big_k):
+    rounds = _pair_order(big_k)
+    assert len(rounds) == big_k - 1
+    met = set()
+    for pairs in rounds:
+        assert sorted(c for pair in pairs for c in pair) == list(range(big_k))
+        met |= {tuple(sorted(pair)) for pair in pairs}
+    assert len(met) == big_k * (big_k - 1) // 2
+
+
+@pytest.mark.parametrize("kind,b,m,k,tol", [("decaying", 6, 256, 64, 1e-3),
+                                            ("decaying", 4, 2048, 16, 1e-2),
+                                            ("deficient", 6, 256, 64, 1e-3),
+                                            ("mixed", 6, 256, 64, 1e-3),
+                                            ("mixed", 9, 70, 7, 1e-1),
+                                            ("decaying", 3, 50, 1, 1e-2)])
+def test_recompress_kernel_model_matches_the_oracle(kind, b, m, k, tol):
+    u, v = (torch.from_numpy(a) for a in _blocks(kind, b, m, k, seed=m + k))
+    u2, v2, ranks, sweeps = _kernel_model(u, v, tol)
+    ur, vr, rr = batched_recompress_ref(u, v, tol)
+    a0 = _products(u.numpy(), v.numpy())
+    norm = np.linalg.norm(a0, axis=(1, 2))
+    safe = np.where(norm > 0, norm, 1.0)
+    rel = np.linalg.norm(_products(u2.numpy(), v2.numpy()) - a0, axis=(1, 2)) / safe
+    rel_ref = np.linalg.norm(_products(ur.numpy(), vr.numpy()) - a0, axis=(1, 2)) / safe
+    same = (ranks == rr).numpy()
+    assert (rel <= 2 * tol).all(), rel
+    assert (np.abs(rel - rel_ref)[same] <= 0.1 * tol).all()
+    assert bool(((sweeps >= 1) & (sweeps <= 8)).all())
+    for blk, r in enumerate(ranks.tolist()):
+        assert bool((u2[blk, :, r:] == 0).all()) and bool((v2[blk, :, r:] == 0).all())
+    zero = norm == 0
+    assert (ranks.numpy()[zero] == 0).all()
