@@ -23,14 +23,20 @@ Phases (any failure ends the run with a non-zero exit code):
      cluster size that fits and streamed, held to the same bits on the
      sampled blocks of every group of P and K; the dense-leaf product on all
      leaves of P and K through the level entry, which reads points and panel
-     in place, equal bit for bit to the gathered entry);
+     in place, equal bit for bit to the gathered entry; the low-rank apply on
+     every level group of P and K through its level entry, which reads the
+     panel in place and adds each row cluster's blocks into Z, equal bit for
+     bit to the gathered entry followed by ``_scatter_rows``, with both
+     routes timed per group of P; the block-Jacobi solve on all 512 blocks of
+     P and at K's shape (128, 256), with its two-sweep floor);
   2. problem P, the paper's model problem (N = 2^20 Halton points on the
      unit square, gaussian, k = 16, c_leaf = 2048, eta = 1.5, P mode):
      build, apply to an (N, 8) panel and an (N,) vector, 512 sampled rows
      against the exact dense rows, two applies bit-identical, block-Jacobi
      setup and 10 PCG iterations; after the count, one apply under
      ``torch.profiler`` split into #2, #3, #4 and the glue (and the gathers
-     in it);
+     in it), as after phases 3, 5 and 6 (K's apply, P's NP apply, P's
+     recompressed store's apply);
   3. problem K, the regression solve (N = 2^15 Halton points scaled by 32,
      c_leaf = 256, sigma2 = 1e-2, tol = 1e-3, R = 8 sinusoid targets):
      block-Jacobi PCG to convergence through the kernels and through the
@@ -325,31 +331,80 @@ def check_dense(hm_p, hm_k, rng, record):
         "whole_dense_group_blocks": whole["P"]["blocks"], "whole_dense_group": whole}
 
 
-def check_lowrank(hm_p, rng, record):
-    from repro_torch.kernels.batched_aca.kernel import batched_lowrank_matmat_cuda
+def lowrank_bytes(b: int, m: int, k: int, r: int, level: bool, n_pad: int = 0) -> float:
+    """Bytes #4 must move on one level group: U, V and the X slices read
+    once; the gathered entry writes Y, the level entry reads and writes Z
+    once (n_pad rows)."""
+    out = 2.0 * n_pad * r if level else float(b) * m * r
+    return 4.0 * (2 * b * m * k + b * m * r + out)
+
+
+def check_lowrank(hm_p, hm_k, rng, record):
+    """#4 on every level group of P (R = 8): the gathered entry against the
+    plain version, then the level entry (X read in place, row clusters
+    added into Z) against the gathered entry + ``_scatter_rows``, bit for
+    bit, on every group of P and K, with times of both routes."""
+    from repro_torch.core.hmatrix import _scatter_rows
+    from repro_torch.kernels.batched_aca.kernel import (batched_lowrank_matmat_cuda,
+                                                        batched_lowrank_matmat_level_cuda)
     from repro_torch.kernels.batched_aca.ref import batched_lowrank_matmat_ref
-    checks, ms, plain, lib, nbytes, flops = [], 0.0, 0.0, 0.0, 0.0, 0.0
-    for level in sorted(hm_p.factors.keys()):
-        u, v = hm_p.factors[level]
-        b, m, k = u.shape
-        x = randn((b, m, 8), rng)
-        y = batched_lowrank_matmat_cuda(u, v, x)
-        y_ref = batched_lowrank_matmat_ref(u, v, x)
-        err = rel_err(y, y_ref)
-        checks.append({"level": level, "B": b, "m": m, "rel_err": err,
-                       "max_abs_err": max_abs(y, y_ref)})
-        require(err <= 1e-5, f"batched_lowrank_matmat level {level}: rel err {err}")
-        ms += gpu_ms(lambda: batched_lowrank_matmat_cuda(u, v, x), 5)
-        plain += gpu_ms(lambda: batched_lowrank_matmat_ref(u, v, x), 5)
-        lib += gpu_ms(lambda: torch.bmm(u, torch.bmm(v.transpose(1, 2), x)), 5)
-        nbytes += 4.0 * (2 * b * m * k + 2 * b * m * 8)
-        flops += 2.0 * b * k * 8 * 2 * m
+    checks, groups = [], []
+    ms = plain = lib = nbytes = flops = level_bytes = 0.0
+    for name, hm in (("P", hm_p), ("K", hm_k)):
+        n_pad = hm.plan.n_pad
+        x_pad = randn((n_pad, 8), rng)
+        z_pad = randn((n_pad, 8), rng)
+        for level in sorted(hm.factors.keys()):
+            u, v = hm.factors[level]
+            g = hm.groups[level]
+            b, m, k = u.shape
+            x = x_pad.reshape(-1, m, 8)[g.cols]
+            y = batched_lowrank_matmat_cuda(u, v, x)
+            z_want = _scatter_rows(z_pad.clone(), y, g)
+            z_got = batched_lowrank_matmat_level_cuda(u, v, x_pad, g.cols, g, z_pad.clone())
+            same = bool(torch.equal(z_got, z_want))
+            require(same, f"batched_lowrank_matmat {name} level {level}: the level entry differs "
+                    "from the gathered entry + _scatter_rows")
+            row = {"problem": name, "level": level, "B": b, "m": m, "k": k,
+                   "distinct_rows": int(g.out_rows.shape[0]), "table_width": int(g.table.shape[1]),
+                   "level_equals_gathered": same}
+            if name == "P":
+                y_ref = batched_lowrank_matmat_ref(u, v, x)
+                err = rel_err(y, y_ref)
+                row.update(rel_err=err, max_abs_err=max_abs(y, y_ref))
+                checks.append(row)
+                require(err <= 1e-5, f"batched_lowrank_matmat level {level}: rel err {err}")
+                row["ms"] = gpu_ms(lambda: batched_lowrank_matmat_cuda(u, v, x), 5)
+                row["plain_ms"] = gpu_ms(lambda: batched_lowrank_matmat_ref(u, v, x), 5)
+                row["library_ms"] = gpu_ms(
+                    lambda: torch.bmm(u, torch.bmm(v.transpose(1, 2), x)), 5)
+                row["gathered_route_ms"] = gpu_ms(lambda: _scatter_rows(
+                    z_pad.clone(), batched_lowrank_matmat_cuda(
+                        u, v, x_pad.reshape(-1, m, 8)[g.cols]), g), 5)
+                ms += row["ms"]
+                plain += row["plain_ms"]
+                lib += row["library_ms"]
+                nbytes += lowrank_bytes(b, m, k, 8, False)
+                level_bytes += lowrank_bytes(b, m, k, 8, True, n_pad)
+                flops += 2.0 * b * k * 8 * 2 * m
+            z_work = z_pad.clone()
+            row["level_ms"] = gpu_ms(lambda: batched_lowrank_matmat_level_cuda(
+                u, v, x_pad, g.cols, g, z_work), 5)
+            row["level_bound_ms"] = bound_ms(lowrank_bytes(b, m, k, 8, True, n_pad),
+                                             2.0 * b * k * 8 * 2 * m)[0]
+            groups.append(row)
+            del x, y, z_want, z_got, z_work
+        del x_pad, z_pad
     bms, by = bound_ms(nbytes, flops)
     record["batched_lowrank_matmat"] = {
         "checks": checks, "max_abs_err": max(ch["max_abs_err"] for ch in checks),
         "rel_err": max(ch["rel_err"] for ch in checks), "ms": ms, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": lib,
-        "timed_shape": "every level group of problem P, R=8 (sum over levels)"}
+        "level_ms": sum(g["level_ms"] for g in groups if g["problem"] == "P"),
+        "level_bound_ms": bound_ms(level_bytes, flops)[0],
+        "gathered_route_ms": sum(g["gathered_route_ms"] for g in groups if g["problem"] == "P"),
+        "groups": groups,
+        "timed_shape": "every level group of problem P, R=8 (sum over levels); gathered entry"}
 
 
 def shifted_diagonal(hm, sigma2: float, count: int | None):
@@ -359,6 +414,13 @@ def shifted_diagonal(hm, sigma2: float, count: int | None):
         a = a[:count].contiguous()
     a.diagonal(dim1=1, dim2=2).add_(sigma2)
     return a
+
+
+def solve_bound(b: int, c: int, r: int, sweeps: int = 1) -> tuple[float, str]:
+    """#6's bound: the lower triangle read ``sweeps`` times (1: each input
+    once, as every bound here counts; 2: the floor of any two-sweep solve),
+    X read and Y written once, against 2 c^2 R flops a block."""
+    return bound_ms(4.0 * (sweeps * b * c * (c + 1) / 2 + 2 * b * c * r), 2.0 * b * c * c * r)
 
 
 def check_cholesky(hm_p, hm_k, rng, record):
@@ -386,6 +448,15 @@ def check_cholesky(hm_p, hm_k, rng, record):
         solve_checks.append({"problem": name, "B": a.shape[0], "c": a.shape[1], "R": 8,
                              "rel_err": err, "max_abs_err": max_abs(y_k, y_r)})
         require(err <= 1e-4, f"batched_block_cholesky_solve {name}: rel err {err}")
+        if name == "K":
+            # problem K's PCG shape (128 blocks of 256, R = 8): latency-bound
+            b, c = l_k.shape[0], l_k.shape[1]
+            k_shape = {"B": b, "c": c, "R": 8,
+                       "ms": gpu_ms(lambda: batched_block_cholesky_solve_cuda(l_k, x), 20),
+                       "plain_ms": gpu_ms(lambda: batched_block_cholesky_solve_ref(l_k, x), 2),
+                       "library_ms": gpu_ms(lambda: torch.cholesky_solve(x, l_k), 20),
+                       "bound_ms": solve_bound(b, c, 8)[0],
+                       "two_sweep_floor_ms": solve_bound(b, c, 8, sweeps=2)[0]}
         if name == "P":
             b, c = a.shape[0], a.shape[1]
             ms = gpu_ms(lambda: batched_block_cholesky_cuda(a), 3)
@@ -411,11 +482,15 @@ def check_cholesky(hm_p, hm_k, rng, record):
     ms = gpu_ms(lambda: batched_block_cholesky_solve_cuda(chol_p, x), 5)
     plain = gpu_ms(lambda: batched_block_cholesky_solve_ref(chol_p, x), 1)
     lib = gpu_ms(lambda: torch.cholesky_solve(x, chol_p), 5)
-    bms, by = bound_ms(4.0 * (b * c * (c + 1) / 2 + 2 * b * c * 8), 2.0 * b * c * c * 8)
+    bms, by = solve_bound(b, c, 8)
+    again = batched_block_cholesky_solve_cuda(chol_p, x)
+    require(bool(torch.equal(again, y_k)), "batched_block_cholesky_solve P (all blocks): two "
+            "solves are not bit-identical")
     record["batched_block_cholesky_solve"] = {
         "checks": solve_checks, "max_abs_err": max(ch["max_abs_err"] for ch in solve_checks),
         "rel_err": max(ch["rel_err"] for ch in solve_checks), "ms": ms, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "two_sweep_floor_ms": solve_bound(b, c, 8, sweeps=2)[0], "K_shape": k_shape,
         "timed_shape": f"B={b} c={c} R=8 (all diagonal blocks of problem P)"}
 
 
@@ -1189,12 +1264,12 @@ def run_np_mode(pts_p, pts_k, iters_kern, allowed, rng, out):
     return hm
 
 
-# kernels of an apply by the names the profiler gives them (csrc/*.cu); the
-# rest of the device time is the glue of core/hmatrix.py
+# kernels of an apply by the names the profiler gives them (csrc/*.cu; #4
+# clears its split counters with a memset, the apply's only one); the rest
+# of the device time is the glue of core/hmatrix.py
 APPLY_PARTS = {"#2 dense leaves": ("dense_matmat_kernel",),
                "#3 ACA": ("aca_resident_kernel", "aca_stream_"),
-               "#4 low-rank": ("vtx_partial_kernel", "reduce_partials_kernel",
-                               "u_times_t_kernel")}
+               "#4 low-rank": ("lowrank_vtx_kernel", "lowrank_ut_kernel", "Memset")}
 GATHER_NAMES = ("index", "gather")
 
 
@@ -1320,6 +1395,7 @@ def run_memory_tier(pts_p, rng, out):
         f"bit-identical {identical}")
     require(raised and identical and restored == freed, "memory tier: spill / reload failed")
     out["memory_tier"] = res
+    return hm_1e2
 
 
 def timed_hlu_kernels(events: dict, retruncations: list):
@@ -1773,7 +1849,7 @@ def main(record: dict) -> int:
     if "1" in args.phases:
         check_dense(hm_p, hm_k, rng, record["kernels"])
         check_matvec(hm_p, hm_k, rng, record["kernels"])
-        check_lowrank(hm_p, rng, record["kernels"])
+        check_lowrank(hm_p, hm_k, rng, record["kernels"])
         check_cholesky(hm_p, hm_k, rng, record["kernels"])
         check_morton(pts_p, record["kernels"])
         check_aca(hm_p, hm_k, rng, record["kernels"])
@@ -1785,6 +1861,22 @@ def main(record: dict) -> int:
             log(f"[1] {name}: max abs err {rec['max_abs_err']:.3e}, kernel {rec['ms']:.3f} ms, "
                 f"plain {rec['plain_ms']:.3f} ms, library {rec['library_ms']}, bound "
                 f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}); {rec['timed_shape']}")
+        lowrank = record["kernels"]["batched_lowrank_matmat"]
+        for g in lowrank["groups"]:
+            times = (f"gathered {g['ms']:.3f} ms (with gather + _scatter_rows "
+                     f"{g['gathered_route_ms']:.3f} ms), " if "ms" in g else "")
+            log(f"[1] batched_lowrank_matmat {g['problem']} level {g['level']} ({g['B']} x "
+                f"{g['m']}, k={g['k']}, {g['distinct_rows']} row clusters, table width "
+                f"{g['table_width']}): {times}level entry {g['level_ms']:.3f} ms (bound "
+                f"{g['level_bound_ms']:.3f}); level equals gathered + scatter "
+                f"{g['level_equals_gathered']}")
+        log(f"[1] batched_lowrank_matmat P, all groups: level entry {lowrank['level_ms']:.3f} ms "
+            f"(bound {lowrank['level_bound_ms']:.3f}), gathered route "
+            f"{lowrank['gathered_route_ms']:.3f} ms")
+        ks = record["kernels"]["batched_block_cholesky_solve"]["K_shape"]
+        log(f"[1] batched_block_cholesky_solve at K's shape ({ks['B']}, {ks['c']}, R=8): kernel "
+            f"{ks['ms']:.4f} ms, plain {ks['plain_ms']:.3f}, library {ks['library_ms']:.4f}, "
+            f"bound {ks['bound_ms']:.4f} (two sweeps {ks['two_sweep_floor_ms']:.4f})")
         dense = record["kernels"]["batched_kernel_matmat"]
         for name, w in dense["whole_dense_group"].items():
             log(f"[1] batched_kernel_matmat on all {w['blocks']} dense leaves of {name} (C="
@@ -1862,6 +1954,8 @@ def main(record: dict) -> int:
         _build.reset_launches()
         f, c_kern, iters_kern = run_problem_k(pts_k, hm_k, record)
         count_launches("K")
+        record["K"]["apply_split"] = apply_split(hm_k, rng)
+        log_apply_split("K", record["K"]["apply_split"])
         allowed = run_problem_k_plain(hm_k, f, c_kern, iters_kern, record)
     del hm_k
     torch.cuda.empty_cache()
@@ -1890,8 +1984,11 @@ def main(record: dict) -> int:
         torch.cuda.empty_cache()
     if "6" in args.phases:
         _build.reset_launches()
-        run_memory_tier(pts_p, rng, record)
+        hm_1e2 = run_memory_tier(pts_p, rng, record)
         count_launches("memory_tier")
+        record["memory_tier"]["apply_split_tol_1e-2"] = apply_split(hm_1e2, rng)
+        log_apply_split("memory tier 1e-2", record["memory_tier"]["apply_split_tol_1e-2"])
+        del hm_1e2
         torch.cuda.empty_cache()
     if "7" in args.phases:
         _build.reset_launches()

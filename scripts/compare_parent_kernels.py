@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Hold this checkout's batched ACA (#3), dense-leaf product (#2),
-recompression (#8) and H-attention near field (#11) against an earlier
-checkout's, on the card: bits or ranks, and times.
+"""Hold this checkout's batched ACA (#3), dense-leaf product (#2), low-rank
+apply (#4), block-Jacobi solve (#6), recompression (#8) and H-attention near
+field (#11) against an earlier checkout's, on the card: bits, ranks or
+values, and times.
 
-    python3 scripts/compare_parent_kernels.py PARENT_DIR [--kernels 2,3,8,11] [--end-to-end]
+    python3 scripts/compare_parent_kernels.py PARENT_DIR [--kernels 2,3,4,6,8,11] [--end-to-end]
 
 PARENT_DIR is another checkout of the repository (for example a
-``git archive`` of the parent commit unpacked under ``build/``).  Its
-``src/repro_torch/csrc/aca.cu``, ``dense_matmat.cu``, ``recompress.cu`` and
-``hattention_nearfield.cu`` are built with nvcc into ``build/parent_kernels/``
-and called through their own C entries (``repro_batched_aca`` with a
-``(B, m)`` residual scratch and no route; ``repro_dense_matmat`` on gathered
-blocks; ``repro_batched_recompress`` and ``repro_hattention_nearfield``,
-whose signatures are this checkout's).  ``--kernels`` picks the kernels
-compared (default all four).  On problems P (N = 2^20, c_leaf = 2048) and
-K (N = 2^15 x 32, c_leaf = 256):
+``git archive`` of the parent commit unpacked under ``build/``).  The
+picked kernels' sources among its ``src/repro_torch/csrc/aca.cu``,
+``dense_matmat.cu``, ``lowrank_matmat.cu``, ``block_cholesky_solve.cu``,
+``recompress.cu`` and ``hattention_nearfield.cu`` are built with nvcc into
+``build/parent_kernels/`` and called through their own C entries
+(``repro_batched_aca`` with a ``(B, m)`` residual scratch and no route;
+``repro_dense_matmat`` on gathered blocks; ``repro_lowrank_matmat`` on
+gathered blocks with its split scratch; ``repro_block_cholesky_solve``,
+``repro_batched_recompress`` and ``repro_hattention_nearfield``, whose
+signatures are this checkout's).  ``--kernels`` picks the kernels compared
+(default all six).  On problems P (N = 2^20, c_leaf = 2048) and K (N =
+2^15 x 32, c_leaf = 256):
 
 * #3, every level group: U, V and the pivot keys of up to 8 sampled blocks
   from the parent's kernel and from this checkout's, on the picked route
@@ -40,11 +44,22 @@ K (N = 2^15 x 32, c_leaf = 256):
 * #11, parent and this checkout in turns, at both ``NEARFIELD_SHAPES`` of
   ``chip_smoke.py`` on random q, k, v: m within 1e-5 of the parent's, num
   and den within 1e-4 (relative);
-* with ``--end-to-end``: K's H-LU setup (a timed ``factorize_hlu`` after a
-  first one, with #8's share by CUDA events around each re-truncation) and
-  the LM's prefill of 2 x 8,192 tokens (qwen2.5-14b-hmatrix, 48 layers,
-  bf16, random weights; a timed prefill after a first one), each in its
-  own process on the parent's package and on this checkout's, in turns.
+* #4, every level group of P and K at R = 8 (the factors of a P-mode
+  build): the parent's route (gather the X slices, the parent's kernel,
+  ``_scatter_rows``) against this checkout's level entry, within 1e-5
+  (relative, on what the group adds to Z), timed in turns, and the
+  parent's gathered kernel against this checkout's gathered entry;
+* #6 on all 512 shifted diagonal blocks of P (c = 2048) and all 128 of K
+  (c = 256), R = 8: within 1e-4 (relative) of the parent's, timed in turns;
+* with ``--end-to-end``, each in its own process on the parent's package
+  and on this checkout's, in turns: for #4 and #6, P's apply of an (N, 8)
+  panel and of a vector, its PCG iteration (10 iterations after a first
+  solve), the apply of its store recompressed at tol 1e-2, its NP-mode
+  apply, and K's block-Jacobi solve (seconds and iterations); for #8 and
+  #11, K's H-LU setup (a timed ``factorize_hlu`` after a first one, with
+  #8's share by CUDA events around each re-truncation) and the LM's prefill
+  of 2 x 8,192 tokens (qwen2.5-14b-hmatrix, 48 layers, bf16, random
+  weights; a timed prefill after a first one).
 
 Exits non-zero on a difference.  Writes ``chiprun_out/compare_parent_kernels.json``.
 """
@@ -69,34 +84,48 @@ _DENSE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, 
 _RECOMPRESS_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                                      ctypes.c_void_p]
 _NEARFIELD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_OLD_LOWRANK_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SOLVE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def build_parent(parent: Path) -> dict:
+# the parent's C entries each kernel number needs: source, entry, argtypes
+_PARENT_ENTRIES = {
+    "3": [("aca", "aca", "repro_batched_aca", _OLD_ACA_ARGTYPES)],
+    "2": [("dense", "dense_matmat", "repro_dense_matmat", _DENSE_ARGTYPES)],
+    "4": [("lowrank", "lowrank_matmat", "repro_lowrank_matmat", _OLD_LOWRANK_ARGTYPES),
+          ("lowrank_splits", "lowrank_matmat", "repro_lowrank_splits", [ctypes.c_int])],
+    "6": [("solve", "block_cholesky_solve", "repro_block_cholesky_solve", _SOLVE_ARGTYPES)],
+    "8": [("recompress", "recompress", "repro_batched_recompress", _RECOMPRESS_ARGTYPES),
+          ("splits", "recompress", "repro_recompress_splits", [ctypes.c_int, ctypes.c_int])],
+    "11": [("nearfield", "hattention_nearfield", "repro_hattention_nearfield",
+            _NEARFIELD_ARGTYPES)],
+}
+
+
+def build_parent(parent: Path, picked: set) -> dict:
+    """Build the parent's sources of the picked kernels (one nvcc each, all
+    at once) and return their C entries by short name."""
     from repro_torch import _build
     out = ROOT / "build" / "parent_kernels"
     out.mkdir(parents=True, exist_ok=True)
     csrc = parent / "src" / "repro_torch" / "csrc"
-    procs = {name: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
-                                     str(out / f"lib{name}.so"), str(csrc / f"{name}.cu")],
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name in ("aca", "dense_matmat", "recompress", "hattention_nearfield")}
+    entries = [e for num in sorted(picked) for e in _PARENT_ENTRIES.get(num, [])]
+    procs = {src: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+                                    str(out / f"lib{src}.so"), str(csrc / f"{src}.cu")],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src in {e[1] for e in entries}}
     libs = {}
-    for name, proc in procs.items():
+    for src, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc of the parent's {name}.cu failed:\n{log}")
-        libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
-    fn = libs["aca"].repro_batched_aca
-    fn.argtypes, fn.restype = _OLD_ACA_ARGTYPES, ctypes.c_int
-    dense = libs["dense_matmat"].repro_dense_matmat
-    dense.argtypes, dense.restype = _DENSE_ARGTYPES, ctypes.c_int
-    rc = libs["recompress"].repro_batched_recompress
-    rc.argtypes, rc.restype = _RECOMPRESS_ARGTYPES, ctypes.c_int
-    splits = libs["recompress"].repro_recompress_splits
-    splits.argtypes, splits.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    nf = libs["hattention_nearfield"].repro_hattention_nearfield
-    nf.argtypes, nf.restype = _NEARFIELD_ARGTYPES, ctypes.c_int
-    return {"aca": fn, "dense": dense, "recompress": rc, "splits": splits, "nearfield": nf}
+            raise RuntimeError(f"nvcc of the parent's {src}.cu failed:\n{log}")
+        libs[src] = ctypes.CDLL(str(out / f"lib{src}.so"))
+    fns = {}
+    for short, src, entry, argtypes in entries:
+        fn = getattr(libs[src], entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[short] = fn
+    return fns
 
 
 def parent_aca(fn, points, rid, cid, m, k):
@@ -260,6 +289,93 @@ def compare_dense(parent, name, hm, rng, rec) -> bool:
     return same and rel <= 1e-5
 
 
+def parent_lowrank(parent, u, v, x):
+    """The parent's #4 on gathered blocks: (B, m, R)."""
+    from repro_torch import _build
+    from repro_torch.kernels import stream_handle
+    b, m, k = u.shape
+    n, r = v.shape[1], x.shape[2]
+    y = torch.empty((b, m, r), device=u.device)
+    part = torch.empty((b * parent["lowrank_splits"](n) * k * r,), device=u.device)
+    tmat = torch.empty((b * k * r,), device=u.device)
+    _build.check(parent["lowrank"](u.data_ptr(), v.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                   part.data_ptr(), tmat.data_ptr(), b, m, n, k, r,
+                                   stream_handle(u.device)), "parent batched_lowrank_matmat")
+    return y
+
+
+def rel(a, b) -> float:
+    """Relative difference of a to b; where b is all zero (K's coarse far
+    field underflows to exact zeros), 0 if a is too, else inf."""
+    diff = float(torch.linalg.vector_norm((a - b).double()))
+    ref = float(torch.linalg.vector_norm(b.double()))
+    return diff / ref if ref > 0 else (0.0 if diff == 0 else float("inf"))
+
+
+def compare_lowrank(parent, name, hm, rng, rec) -> bool:
+    """#4 on every level group: the parent's route (gather, its kernel,
+    _scatter_rows) against the level entry, and the two gathered kernels,
+    timed in turns."""
+    from repro_torch.core.hmatrix import _scatter_rows
+    from repro_torch.kernels.batched_aca.kernel import (batched_lowrank_matmat_cuda,
+                                                        batched_lowrank_matmat_level_cuda)
+    n_pad, ok = hm.plan.n_pad, True
+    x_pad = torch.from_numpy(rng.standard_normal((n_pad, 8)).astype(np.float32)).cuda()
+    z_pad = torch.from_numpy(rng.standard_normal((n_pad, 8)).astype(np.float32)).cuda()
+    total = {"parent_route_ms": 0.0, "level_ms": 0.0, "parent_ms": 0.0, "gathered_ms": 0.0}
+    for level in sorted(hm.factors.keys()):
+        u, v = hm.factors[level]
+        g = hm.groups[level]
+        m = u.shape[1]
+
+        def par_route(z):
+            return _scatter_rows(z, parent_lowrank(parent, u, v, x_pad.reshape(-1, m, 8)[g.cols]),
+                                 g)
+
+        def level_route(z):
+            return batched_lowrank_matmat_level_cuda(u, v, x_pad, g.cols, g, z)
+        want = par_route(z_pad.clone()) - z_pad
+        got = level_route(z_pad.clone()) - z_pad
+        x_blk = x_pad.reshape(-1, m, 8)[g.cols].contiguous()
+        row = {"B": int(u.shape[0]), "m": m, "rel_diff_vs_parent": rel(got, want)}
+        ok &= row["rel_diff_vs_parent"] <= 1e-5
+        z_work = z_pad.clone()
+        row["parent_route_ms"], row["level_ms"] = in_turns(lambda: par_route(z_work),
+                                                           lambda: level_route(z_work))
+        row["parent_ms"], row["gathered_ms"] = in_turns(
+            lambda: parent_lowrank(parent, u, v, x_blk),
+            lambda: batched_lowrank_matmat_cuda(u, v, x_blk))
+        for key in total:
+            total[key] += row[key]
+        rec[f"lowrank_{name}/{level}"] = row
+        print(f"[#4 {name} level {level}] {row}", flush=True)
+        del x_blk, z_work, want, got
+    rec[f"lowrank_{name}"] = total
+    print(f"[#4 {name}, all groups] {total}", flush=True)
+    return ok
+
+
+def compare_solve(parent, name, lmat, gen, rec) -> bool:
+    """#6 against the parent's at R = 8: within 1e-4, times in turns."""
+    from repro_torch import _build
+    from repro_torch.kernels import stream_handle
+    from repro_torch.kernels.batched_block_solve.kernel import batched_block_cholesky_solve_cuda
+    b, c = lmat.shape[0], lmat.shape[1]
+    x = torch.randn(b, c, 8, generator=gen, device="cuda")
+    y_par = torch.empty_like(x)
+
+    def par():
+        _build.check(parent["solve"](lmat.data_ptr(), x.data_ptr(), y_par.data_ptr(), b, c, 8,
+                                     stream_handle(x.device)), "parent block_cholesky_solve")
+    par()
+    got = batched_block_cholesky_solve_cuda(lmat, x)
+    row = {"B": b, "c": c, "R": 8, "rel_diff_vs_parent": rel(got, y_par)}
+    row["parent_ms"], row["ms"] = in_turns(par, lambda: batched_block_cholesky_solve_cuda(lmat, x))
+    rec[f"solve_{name}"] = row
+    print(f"[#6 {name}] {row}", flush=True)
+    return row["rel_diff_vs_parent"] <= 1e-4
+
+
 def parent_recompress(parent, u, v, tol):
     """The parent's #8 through its C entry: (u2, v2, s, ranks, sweeps)."""
     from repro_torch import _build
@@ -354,8 +470,60 @@ def compare_nearfield(parent, label, shape, gen, rec) -> bool:
 
 # One process's end-to-end measurement, run with PYTHONPATH at one
 # checkout's src/ and that checkout as the working directory (its kernels
-# build under its own build/): prints one JSON line.
-_END_TO_END = r"""
+# build under its own build/): prints one JSON line.  For #4 and #6: P's
+# applies and PCG iteration, K's block-Jacobi solve.
+_APPLY_PCG = r"""
+import dataclasses, json, time, torch
+from repro_torch.core import (FactorStore, build_hmatrix, build_hmatrix_device, halton,
+                              make_apply, recompress_store, sinusoid_targets)
+from repro_torch.solve import make_solver
+
+def wall(fn):
+    torch.cuda.synchronize(); t0 = time.perf_counter(); out = fn(); torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+def ms(fn, reps=3):
+    fn(); torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record(); torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+gen = torch.Generator(device="cuda").manual_seed(0)
+pts = halton(1 << 20, 2, device="cuda")
+hm = build_hmatrix(pts, "gaussian", k=16, c_leaf=2048, eta=1.5, precompute=True)
+apply_h = make_apply(hm)
+x = torch.randn(hm.tree.n, 8, device="cuda", generator=gen)
+vec = x[:, 0].contiguous()
+out = {"apply_ms_R8": ms(lambda: apply_h(x)), "apply_ms_vector": ms(lambda: apply_h(vec))}
+solver = make_solver(hm, 1e-2, tol=0.0, max_iter=10)
+solver(x)
+_, secs = wall(lambda: solver(x))
+out["pcg_ms_per_iteration"] = secs * 100.0
+store = FactorStore(dict(hm.factors.levels), dict(hm.factors.rank_tables))
+recompress_store(store, 1e-2)
+apply_t = make_apply(dataclasses.replace(hm, factors=store))
+out["recompressed_apply_ms_R8"] = ms(lambda: apply_t(x))
+del hm, apply_h, solver, store, apply_t
+torch.cuda.empty_cache()
+apply_np = make_apply(build_hmatrix_device(pts, kernel="gaussian", k=16, c_leaf=2048, eta=1.5))
+out["np_apply_ms_R8"] = ms(lambda: apply_np(x), 2)
+del apply_np
+torch.cuda.empty_cache()
+pk = halton(1 << 15, 2, device="cuda") * 32.0
+hk = build_hmatrix(pk, "gaussian", k=16, c_leaf=256, eta=1.5, precompute=True)
+f = sinusoid_targets(pk, 8, 32.0)
+solver = make_solver(hk, 1e-2, tol=1e-3, max_iter=300)
+solver(f)
+(_, info), out["K_solve_s"] = wall(lambda: solver(f))
+out["K_iters_per_column"] = info.iters_per_column.tolist()
+print(json.dumps(out))
+"""
+
+# For #8 and #11: K's H-LU setup and the LM's prefill.
+_HLU_PREFILL = r"""
 import json, time, torch
 from repro_torch.core import build_hmatrix, halton
 from repro_torch.harith import factorize_hlu, hlu
@@ -401,28 +569,28 @@ print(json.dumps({"hlu_setup_s": setup_s, "hlu_recompress_s": recompress_s,
 """
 
 
-def end_to_end(parent_dir: Path, rec) -> None:
-    """K's H-LU setup and the LM prefill, parent and this checkout in turns
-    (parent, new, new, parent), one process each."""
+def end_to_end(parent_dir: Path, script: str, key: str, rec) -> None:
+    """One end-to-end script, parent and this checkout in turns (parent,
+    new, new, parent), one process each."""
     import os
     runs = []
     for label, root in (("parent", parent_dir), ("new", ROOT), ("new", ROOT),
                         ("parent", parent_dir)):
         env = dict(os.environ, PYTHONPATH=str(root / "src"))
-        out = subprocess.run([sys.executable, "-c", _END_TO_END], cwd=root, env=env,
+        out = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
                              check=True, capture_output=True, text=True).stdout
         row = json.loads(out.strip().splitlines()[-1])
         row["checkout"] = label
         runs.append(row)
-        print(f"[end to end {label}] {row}", flush=True)
-    rec["end_to_end"] = runs
+        print(f"[end to end {key} {label}] {row}", flush=True)
+    rec[key] = runs
 
 
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("parent_dir")
-    parser.add_argument("--kernels", default="2,3,8,11")
+    parser.add_argument("--kernels", default="2,3,4,6,8,11")
     parser.add_argument("--end-to-end", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -430,7 +598,7 @@ def main() -> int:
         return 2
     picked = set(args.kernels.split(","))
     from repro_torch.core import build_hmatrix, halton
-    parent = build_parent(Path(args.parent_dir).resolve())
+    parent = build_parent(Path(args.parent_dir).resolve(), picked)
     rng = np.random.RandomState(SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     from repro_torch import _build
@@ -442,11 +610,19 @@ def main() -> int:
         print(f"[#2 SASS] {rec['dense_sass']}", flush=True)
     ok = True
     problems = (("P", 1 << 20, 1.0, 2048), ("K", 1 << 15, 32.0, 256))
-    for name, n, scale, c_leaf in problems if picked & {"2", "3", "8"} else ():
-        if name == "K" and not picked & {"2", "3"}:
+    for name, n, scale, c_leaf in problems if picked & {"2", "3", "4", "6", "8"} else ():
+        if name == "K" and not picked & {"2", "3", "4", "6"}:
             continue
         hm = build_hmatrix(halton(n, 2, device="cuda") * scale, "gaussian", k=16,
-                           c_leaf=c_leaf, eta=1.5, precompute="8" in picked and name == "P")
+                           c_leaf=c_leaf, eta=1.5,
+                           precompute="4" in picked or ("8" in picked and name == "P"))
+        if "4" in picked:
+            ok &= compare_lowrank(parent, name, hm, rng, rec)
+            torch.cuda.empty_cache()
+        if "6" in picked:
+            from repro_torch.solve.cg import build_preconditioner
+            ok &= compare_solve(parent, name, build_preconditioner(hm, 1e-2), gen, rec)
+            torch.cuda.empty_cache()
         if "3" in picked:
             ok &= compare_aca(parent, name, hm, rng, rec)
         if "2" in picked:
@@ -476,8 +652,10 @@ def main() -> int:
         for label, shape in NEARFIELD_SHAPES.items():
             ok &= compare_nearfield(parent, label, shape, gen, rec)
             torch.cuda.empty_cache()
-    if args.end_to_end:
-        end_to_end(Path(args.parent_dir).resolve(), rec)
+    if args.end_to_end and picked & {"4", "6"}:
+        end_to_end(Path(args.parent_dir).resolve(), _APPLY_PCG, "end_to_end_apply_pcg", rec)
+    if args.end_to_end and picked & {"8", "11"}:
+        end_to_end(Path(args.parent_dir).resolve(), _HLU_PREFILL, "end_to_end", rec)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "compare_parent_kernels.json").write_text(json.dumps(rec, indent=1))
     print(json.dumps({"ok": ok}))

@@ -6,17 +6,19 @@ factors.  ``make_apply`` returns ``apply(X) = H X`` for ``x: (N,)`` or a
 panel ``X: (N, R)``:
 
   * for every admissible level group, the batched rank-k product
-    ``U (V^T X)`` (kernel ``batched_lowrank_matmat``); without stored
-    factors (NP mode) the group's factors are first recomputed by the
-    batched ACA (kernel ``batched_aca``) in every apply;
+    ``U (V^T X)`` (kernel ``batched_lowrank_matmat``, level entry: it reads
+    X in place and adds each row cluster's blocks into Z itself); without
+    stored factors (NP mode) the group's factors are first recomputed by
+    the batched ACA (kernel ``batched_aca``) in every apply;
   * for the inadmissible leaves, the batched on-the-fly dense product
     ``phi(rows, cols) X`` (kernel ``batched_kernel_matmat``, or
     ``batched_kernel_matvec`` for a single column), the block never stored.
 
-Block results are scattered back to their row clusters by a deterministic
+Block results are added into their row clusters by a deterministic
 segment sum: a row cluster appears in several blocks of one group, and the
 order of those additions is fixed at build time (``BlockGroup``), so two
-applies on the card are bit-identical.
+applies on the card are bit-identical.  The dense leaves go through
+``_scatter_rows``; the low-rank kernel sums in the same order itself.
 """
 from __future__ import annotations
 
@@ -42,12 +44,20 @@ class BlockGroup:
     out_rows:    (U,) the distinct row clusters, ascending.
     table:       (U, S) block indices per distinct row cluster in block
                  order, padded with B (an all-zero block appended at apply).
+    offsets, blocks: the table without its pads: distinct row u's blocks
+                 are ``blocks[offsets[u]:offsets[u + 1]]``, in table order;
+                 (U + 1,) and (B,).
+    longest_first: (U,) the distinct rows by decreasing block count (the
+                 low-rank kernel's launch order, so the longest start first).
     """
 
     rows: torch.Tensor
     cols: torch.Tensor
     out_rows: torch.Tensor
     table: torch.Tensor
+    offsets: torch.Tensor
+    blocks: torch.Tensor
+    longest_first: torch.Tensor
 
 
 def block_group(blocks: np.ndarray, device) -> BlockGroup:
@@ -62,11 +72,16 @@ def block_group(blocks: np.ndarray, device) -> BlockGroup:
     for s in range(width):
         has = counts > s
         table[has, s] = order[starts[has] + s]
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    longest_first = np.argsort(-counts, kind="stable").astype(np.int64)
     dev = torch.device(device)
     return BlockGroup(rows=torch.from_numpy(rows).to(dev),
                       cols=torch.from_numpy(np.asarray(blocks[:, 1], np.int64)).to(dev),
                       out_rows=torch.from_numpy(out_rows).to(dev),
-                      table=torch.from_numpy(table).to(dev))
+                      table=torch.from_numpy(table).to(dev),
+                      offsets=torch.from_numpy(offsets).to(dev),
+                      blocks=torch.from_numpy(order.astype(np.int64)).to(dev),
+                      longest_first=torch.from_numpy(longest_first).to(dev))
 
 
 def block_groups(plan: HMatrixPlan, device) -> dict:
@@ -205,16 +220,16 @@ def _scatter_rows(z_pad: torch.Tensor, y: torch.Tensor, g: BlockGroup) -> torch.
     return z_pad
 
 
-def _aca_level_apply(tree: ClusterTree, level: int, g: BlockGroup, U, V,
-                     x_pad: torch.Tensor, z_pad: torch.Tensor, use_kernels: bool):
-    m = tree.n_pad >> level
-    r = x_pad.shape[1]
-    x_blk = x_pad.reshape(1 << level, m, r)[g.cols]              # (B, m, R)
+def _aca_level_apply(g: BlockGroup, U, V, x_pad: torch.Tensor, z_pad: torch.Tensor,
+                     use_kernels: bool):
+    """z_pad[row cluster] += its blocks' U (V^T X), in table order.  The
+    kernel reads X in place and writes each row once; the plain version
+    gathers, multiplies and scatters (the same bits on the card)."""
     if use_kernels:
-        from ..kernels.batched_aca.ops import batched_lowrank_matmat as lowrank
+        from ..kernels.batched_aca.ops import batched_lowrank_matmat_level as lowrank
     else:
-        from ..kernels.batched_aca.ref import batched_lowrank_matmat_ref as lowrank
-    return _scatter_rows(z_pad, lowrank(U, V, x_blk), g)          # U (V^T X)
+        from ..kernels.batched_aca.ref import batched_lowrank_matmat_level_ref as lowrank
+    return lowrank(U, V, x_pad, g.cols, g, z_pad)
 
 
 def _dense_apply_points(points: torch.Tensor, plan: HMatrixPlan, kernel: Callable,
@@ -253,6 +268,7 @@ def apply_in_tree_order(tree: ClusterTree, plan: HMatrixPlan, kernel: Callable, 
     as the P-mode build computes them).  A panel of one column sends the
     dense leaves through the vector kernel.
     """
+    x_pad = x_pad.contiguous()
     z_pad = torch.zeros_like(x_pad)
     for level in plan.aca_levels:
         g = groups[level]
@@ -264,7 +280,7 @@ def apply_in_tree_order(tree: ClusterTree, plan: HMatrixPlan, kernel: Callable, 
         else:
             U, V = batched_aca(_cluster_points(points, level, g.rows),
                                _cluster_points(points, level, g.cols), kernel, k)
-        z_pad = _aca_level_apply(tree, level, g, U, V, x_pad, z_pad, use_kernels)
+        z_pad = _aca_level_apply(g, U, V, x_pad, z_pad, use_kernels)
     return _dense_apply_points(points, plan, kernel, groups["dense"], x_pad, z_pad,
                                use_kernels)
 

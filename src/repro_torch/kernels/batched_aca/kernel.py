@@ -17,7 +17,9 @@ from ...core.geometry import matern_norm
 from .. import require_cuda_f32, stream_handle
 from ..phi import kernel_id
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_LOWRANK_ARGTYPES = [_P] * 3 + [_LL, _I, _P, _LL, _I, _P] + [_I] * 5 + [_P]
+_LOWRANK_LEVEL_ARGTYPES = [_P] * 3 + [_I, _P, _P, _I] + [_P] * 4 + [_I, _P] + [_I] * 4 + [_P]
 _ACA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 MAX_K = 64
@@ -170,9 +172,32 @@ def batched_aca_level_cuda(points: torch.Tensor, row_ids: torch.Tensor, col_ids:
     return u, v
 
 
+def lowrank_column_chunks(k: int, r: int) -> list[tuple[int, int]]:
+    """(first column, width) of each launch of a k x R low-rank product:
+    at most ``MAX_KR`` values of T (k x width) per launch."""
+    width = max(1, MAX_KR // k)
+    return [(c0, min(width, r - c0)) for c0 in range(0, r, width)]
+
+
+def _lowrank_scratch(b: int, n: int, k: int, r: int, device) -> torch.Tensor:
+    """T, the split partials and the split counters of one launch."""
+    floats = _build.c_function("lowrank_matmat", "repro_lowrank_scratch_floats",
+                               [ctypes.c_int] * 4, ctypes.c_longlong)(b, n, k, r)
+    return torch.empty((floats,), dtype=torch.float32, device=device)
+
+
+def _check_lowrank_k(what: str, k: int, b: int) -> None:
+    if not 1 <= k <= MAX_K or b > MAX_BATCH:
+        raise ValueError(f"{what}: the kernel takes 1 <= k <= {MAX_K} and at most "
+                         f"{MAX_BATCH} blocks, got k={k}, B={b}")
+
+
 def batched_lowrank_matmat_cuda(u: torch.Tensor, v: torch.Tensor,
                                 x: torch.Tensor) -> torch.Tensor:
-    """u: (B, m, k), v: (B, n, k), x: (B, n, R) float32 CUDA tensors -> (B, m, R)."""
+    """u: (B, m, k), v: (B, n, k), x: (B, n, R) float32 CUDA tensors -> (B, m, R).
+
+    Panels with k * R > ``MAX_KR`` go in column chunks, each read and
+    written in place through its row stride (no copies)."""
     what = "batched_lowrank_matmat"
     require_cuda_f32(what, u, v, x)
     if u.ndim != 3 or v.ndim != 3 or x.ndim != 3 or v.shape[0] != u.shape[0] \
@@ -181,29 +206,69 @@ def batched_lowrank_matmat_cuda(u: torch.Tensor, v: torch.Tensor,
                          f"x {tuple(x.shape)} do not match (B, m, k), (B, n, k), (B, n, R)")
     b, m, k = u.shape
     n, r = v.shape[1], x.shape[2]
-    if not 1 <= k <= MAX_K or b > MAX_BATCH:
-        raise ValueError(f"{what}: the kernel takes 1 <= k <= {MAX_K} and at most "
-                         f"{MAX_BATCH} blocks, got k={k}, B={b}")
+    _check_lowrank_k(what, k, b)
     y = torch.empty((b, m, r), dtype=torch.float32, device=u.device)
     if b == 0 or m == 0 or r == 0:
         return y
-    width = max(1, MAX_KR // k)
-    splits_of = _build.c_function("lowrank_matmat", "repro_lowrank_splits", [ctypes.c_int])
-    fn = _build.c_function("lowrank_matmat", "repro_lowrank_matmat", _ARGTYPES)
+    fn = _build.c_function("lowrank_matmat", "repro_lowrank_matmat", _LOWRANK_ARGTYPES)
     with torch.cuda.device(u.device):
-        for c0 in range(0, r, width):
-            xc = x if width >= r else x[:, :, c0:c0 + width].contiguous()
-            rc = xc.shape[2]
-            yc = y if width >= r else torch.empty((b, m, rc), dtype=torch.float32,
-                                                  device=u.device)
-            part = torch.empty((b * splits_of(n) * k * rc,), dtype=torch.float32,
-                               device=u.device)
-            tmat = torch.empty((b * k * rc,), dtype=torch.float32, device=u.device)
-            err = fn(u.data_ptr(), v.data_ptr(), xc.data_ptr(), yc.data_ptr(),
-                     part.data_ptr(), tmat.data_ptr(), b, m, n, k, rc,
+        for c0, w in lowrank_column_chunks(k, r):
+            scratch = _lowrank_scratch(b, n, k, w, u.device)
+            err = fn(u.data_ptr(), v.data_ptr(), x.data_ptr() + 4 * c0, n * r, r,
+                     y.data_ptr() + 4 * c0, m * r, r, scratch.data_ptr(), b, m, n, k, w,
                      stream_handle(u.device))
             _build.check(err, what)
             _build.LAUNCHES[what] += 1
-            if yc is not y:
-                y[:, :, c0:c0 + rc] = yc
     return y
+
+
+def batched_lowrank_matmat_level_cuda(u: torch.Tensor, v: torch.Tensor, x_pad: torch.Tensor,
+                                      cols: torch.Tensor, group,
+                                      z_pad: torch.Tensor) -> torch.Tensor:
+    """Apply one admissible level group in place: for every distinct row
+    cluster of ``group`` (a ``core.hmatrix.BlockGroup``), ``z_pad[cluster] +=``
+    the sum of its blocks' ``U[b] (V[b]^T x_pad[cluster cols[b]])``, the blocks
+    taken in the order of ``group.table``.
+
+    u, v: (B, m, k) factors; x_pad, z_pad: (n_pad, R) tree-ordered panels,
+    float32 CUDA, contiguous; cols: (B,) int64 column clusters (cluster i is
+    rows [i m, (i + 1) m)).  Each block's X slice is read in place and each
+    output row is written once; the result equals the gathered entry
+    followed by ``_scatter_rows`` bit for bit.  Returns ``z_pad``.  The ids
+    are not read back (checked when ``hmatrix.block_groups`` built them).
+    """
+    what = "batched_lowrank_matmat"
+    require_cuda_f32(what, u, v, x_pad, z_pad)
+    if u.ndim != 3 or v.shape != u.shape or x_pad.ndim != 2 or z_pad.shape != x_pad.shape:
+        raise ValueError(f"{what}: shapes u {tuple(u.shape)}, v {tuple(v.shape)}, x_pad "
+                         f"{tuple(x_pad.shape)}, z_pad {tuple(z_pad.shape)} do not match "
+                         "(B, m, k), (B, m, k), (n_pad, R), (n_pad, R)")
+    b, m, k = u.shape
+    n_pad, r = x_pad.shape
+    if m < 1 or n_pad % m:
+        raise ValueError(f"{what}: {n_pad} rows do not split into clusters of {m}")
+    _check_lowrank_k(what, k, b)
+    ids = (cols, group.out_rows, group.offsets, group.blocks, group.longest_first)
+    for t in ids:
+        if t.device != u.device or t.dtype != torch.int64 or not t.is_contiguous():
+            raise ValueError(f"{what}: cluster ids and the group's lists must be contiguous "
+                             f"int64 on {u.device}")
+    n_out = group.out_rows.shape[0]
+    if cols.shape != (b,) or group.blocks.shape != (b,) or group.offsets.shape != (n_out + 1,) \
+            or group.longest_first.shape != (n_out,):
+        raise ValueError(f"{what}: the group's lists do not match its {b} blocks")
+    if b == 0 or r == 0:
+        return z_pad
+    fn = _build.c_function("lowrank_matmat", "repro_lowrank_matmat_level",
+                           _LOWRANK_LEVEL_ARGTYPES)
+    with torch.cuda.device(u.device):
+        for c0, w in lowrank_column_chunks(k, r):
+            scratch = _lowrank_scratch(b, m, k, w, u.device)
+            err = fn(u.data_ptr(), v.data_ptr(), x_pad.data_ptr() + 4 * c0, r, cols.data_ptr(),
+                     z_pad.data_ptr() + 4 * c0, r, group.out_rows.data_ptr(),
+                     group.offsets.data_ptr(), group.blocks.data_ptr(),
+                     group.longest_first.data_ptr(), n_out, scratch.data_ptr(), b, m, k, w,
+                     stream_handle(u.device))
+            _build.check(err, what)
+            _build.LAUNCHES[what] += 1
+    return z_pad

@@ -8,8 +8,10 @@ from __future__ import annotations
 import torch
 
 from .. import on_cpu
-from .kernel import batched_aca_level_cuda, batched_lowrank_matmat_cuda
-from .ref import batched_aca_level_ref, batched_lowrank_matmat_ref
+from .kernel import (batched_aca_level_cuda, batched_lowrank_matmat_cuda,
+                     batched_lowrank_matmat_level_cuda)
+from .ref import (batched_aca_level_ref, batched_lowrank_matmat_level_ref,
+                  batched_lowrank_matmat_ref)
 
 
 def batched_aca_level(points: torch.Tensor, row_ids: torch.Tensor, col_ids: torch.Tensor,
@@ -39,3 +41,20 @@ def batched_lowrank_matmat(u: torch.Tensor, v: torch.Tensor,
     if on_cpu("batched_lowrank_matmat", u, v, x):
         return batched_lowrank_matmat_ref(u, v, x)
     return batched_lowrank_matmat_cuda(u, v, x)
+
+
+def batched_lowrank_matmat_level(u: torch.Tensor, v: torch.Tensor, x_pad: torch.Tensor,
+                                 cols: torch.Tensor, group, z_pad: torch.Tensor) -> torch.Tensor:
+    """One admissible level group of the apply, in place on ``z_pad``:
+    every distinct row cluster of ``group`` gets the sum of its blocks'
+    ``U (V^T X)``, blocks in table order (the apply's fixed-order scatter).
+
+    u, v: (B, m, k); x_pad, z_pad: (n_pad, R) tree-ordered panels; cols:
+    (B,) column clusters.  CPU tensors run the plain version (gather,
+    :func:`batched_lowrank_matmat_ref`, scatter); CUDA tensors the kernel,
+    which reads X in place and gives the same bits as the gathered kernel
+    followed by the scatter.  Returns ``z_pad``.
+    """
+    if on_cpu("batched_lowrank_matmat_level", u, v, x_pad, z_pad):
+        return batched_lowrank_matmat_level_ref(u, v, x_pad, cols, group, z_pad)
+    return batched_lowrank_matmat_level_cuda(u, v, x_pad, cols, group, z_pad)

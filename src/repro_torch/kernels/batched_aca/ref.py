@@ -33,3 +33,15 @@ def batched_lowrank_matmat_ref(u: torch.Tensor, v: torch.Tensor,
     """u: (B, m, k), v: (B, n, k), x: (B, n, R) -> U (V^T X): (B, m, R)."""
     t = torch.bmm(v.transpose(1, 2), x)
     return torch.bmm(u, t)
+
+
+def batched_lowrank_matmat_level_ref(u: torch.Tensor, v: torch.Tensor, x_pad: torch.Tensor,
+                                     cols: torch.Tensor, group,
+                                     z_pad: torch.Tensor) -> torch.Tensor:
+    """Gather the level group's X slices from ``x_pad`` (n_pad, R),
+    :func:`batched_lowrank_matmat_ref`, then the apply's fixed-order scatter
+    into ``z_pad`` (``core.hmatrix._scatter_rows``, in place).  Returns ``z_pad``."""
+    from ...core.hmatrix import _scatter_rows
+    m, r = u.shape[1], x_pad.shape[1]
+    x_blk = x_pad.reshape(-1, m, r)[cols]
+    return _scatter_rows(z_pad, batched_lowrank_matmat_ref(u, v, x_blk), group)

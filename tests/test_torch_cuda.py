@@ -20,8 +20,9 @@ rises in later key tiles), and the LM's prefill through the kernel against
 the same prefill through the plain version on the card within 1e-4
 relative.
 The ACA's two routes (resident, at every cluster size that fits, and
-streamed) must give the same bits, and the dense leaves' level entry the
-gathered entry's bits.  With TF32 on, every entry point raises for CUDA
+streamed) must give the same bits, the dense leaves' level entry the
+gathered entry's bits, and the low-rank level entry the bits of the
+gathered entry followed by ``_scatter_rows``.  With TF32 on, every entry point raises for CUDA
 operands.
 """
 import numpy as np
@@ -120,6 +121,82 @@ def test_lowrank_matmat_kernel_matches_plain_on_card(cuda_device, m, k, r):
     y = batched_lowrank_matmat(u, v, x)
     assert _rel(y, batched_lowrank_matmat_ref(u, v, x)) <= 1e-5
     assert torch.equal(y, batched_lowrank_matmat(u, v, x))      # no atomics
+
+
+def _level_case(device, seed, n_clusters, m, b, k, r):
+    """A level group of b blocks over n_clusters clusters of m rows, with
+    repeated row clusters, and its operands."""
+    from repro_torch.core.hmatrix import block_group
+    rng = _rs(seed)
+    blocks = np.stack([rng.randint(0, n_clusters, b), rng.randint(0, n_clusters, b)], axis=1)
+    g = block_group(blocks, device)
+    g_cpu = torch.Generator(device="cpu").manual_seed(seed)
+    u = torch.randn(b, m, k, generator=g_cpu).to(device)
+    v = torch.randn(b, m, k, generator=g_cpu).to(device)
+    x_pad = torch.randn(n_clusters * m, r, generator=g_cpu).to(device)
+    z_pad = torch.randn(n_clusters * m, r, generator=g_cpu).to(device)
+    return g, u, v, x_pad, z_pad
+
+
+def _check_level_entry(g, u, v, x_pad, z_pad):
+    from repro_torch.core.hmatrix import _scatter_rows
+    from repro_torch.kernels.batched_aca.kernel import lowrank_column_chunks
+    from repro_torch.kernels.batched_aca.ops import batched_lowrank_matmat_level
+    m, k, r = u.shape[1], u.shape[2], x_pad.shape[1]
+    y = batched_lowrank_matmat(u, v, x_pad.reshape(-1, m, r)[g.cols])
+    want = _scatter_rows(z_pad.clone(), y, g)
+    before = _build.LAUNCHES["batched_lowrank_matmat"]
+    got = batched_lowrank_matmat_level(u, v, x_pad, g.cols, g, z_pad.clone())
+    assert _build.LAUNCHES["batched_lowrank_matmat"] == before + len(lowrank_column_chunks(k, r))
+    assert torch.equal(got, want)
+    assert torch.equal(got, batched_lowrank_matmat_level(u, v, x_pad, g.cols, g, z_pad.clone()))
+    plain = z_pad.clone()
+    from repro_torch.kernels.batched_aca.ref import batched_lowrank_matmat_level_ref
+    batched_lowrank_matmat_level_ref(u, v, x_pad, g.cols, g, plain)
+    assert _rel(got - z_pad, plain - z_pad) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 16, 64])
+@pytest.mark.parametrize("r", [1, 8, 80])
+def test_lowrank_level_entry_equals_gathered_and_scatter_on_card(cuda_device, k, r):
+    """The level entry (X read in place, each row cluster's blocks summed in
+    table order into Z) against the gathered kernel + ``_scatter_rows``:
+    the same bits, run to run too; k * R > 1024 goes in column chunks of
+    strided views.  m = 2500 splits V^T X over two CTAs a block."""
+    _check_level_entry(*_level_case(cuda_device, 100 + k + r, 8, 2500, 24, k, r))
+
+
+@pytest.mark.cuda
+def test_lowrank_level_entry_on_a_coarse_group_on_card(cuda_device):
+    """4 blocks of 131,072 rows (problem P's level 3): 64 splits a block."""
+    _check_level_entry(*_level_case(cuda_device, 7, 8, 131072, 4, 16, 8))
+
+
+def _well_conditioned_lower(b, c, device, seed):
+    """Lower factors with a diagonal in [1, 2) and small entries below it."""
+    gen = torch.Generator(device=device.type).manual_seed(seed)
+    lmat = torch.randn(b, c, c, generator=gen, device=device).tril_(-1).mul_(0.5 / c ** 0.5)
+    lmat.diagonal(dim1=1, dim2=2).copy_(1.0 + torch.rand(b, c, generator=gen, device=device))
+    return lmat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b", [(75, 3), (100, 1), (100, 128), (256, 1), (256, 128),
+                                 (2048, 1), (2048, 512)])
+@pytest.mark.parametrize("r", [1, 3, 8])
+def test_block_cholesky_solve_kernel_matches_plain_on_card(cuda_device, c, b, r):
+    """#6 at problem K's (128, 256) and problem P's (512, 2048) shapes, at
+    B = 1, with a ragged last tile (c = 75, 100) and c % 4 != 0 (4-byte
+    copies): within 1e-4 of the plain version and bit-identical run to run."""
+    lmat = _well_conditioned_lower(b, c, cuda_device, c + b + r)
+    x = torch.randn(b, c, r, generator=torch.Generator(device="cuda").manual_seed(r),
+                    device=cuda_device)
+    before = _build.LAUNCHES["batched_block_cholesky_solve"]
+    y = batched_block_cholesky_solve(lmat, x)
+    assert _build.LAUNCHES["batched_block_cholesky_solve"] == before + 1
+    assert _rel(y, batched_block_cholesky_solve_ref(lmat, x)) <= 1e-4
+    assert torch.equal(y, batched_block_cholesky_solve(lmat, x))
 
 
 @pytest.mark.cuda
