@@ -28,15 +28,22 @@ Phases (any failure ends the run with a non-zero exit code):
      panel in place and adds each row cluster's blocks into Z, equal bit for
      bit to the gathered entry followed by ``_scatter_rows``, with both
      routes timed per group of P; the block-Jacobi solve on all 512 blocks of
-     P and at K's shape (128, 256), with its two-sweep floor);
+     P and at K's shape (128, 256), with its two-sweep floor; the block
+     Cholesky on 32 of P's blocks (its wide route, also split into diagonal
+     tiles, panels and trailing updates by CUDA events), on all of K's
+     (128, 256) and at B = 1 (its shared-memory route), each also through
+     the wrapper back to back, beside ``torch.linalg.cholesky``, two calls
+     bit-identical, and a block with row and column 40 zeroed (a clamped
+     pivot) on both routes; the Morton encode also on edge points);
   2. problem P, the paper's model problem (N = 2^20 Halton points on the
      unit square, gaussian, k = 16, c_leaf = 2048, eta = 1.5, P mode):
      build, apply to an (N, 8) panel and an (N,) vector, 512 sampled rows
      against the exact dense rows, two applies bit-identical, block-Jacobi
-     setup and 10 PCG iterations; after the count, one apply under
-     ``torch.profiler`` split into #2, #3, #4 and the glue (and the gathers
-     in it), as after phases 3, 5 and 6 (K's apply, P's NP apply, P's
-     recompressed store's apply);
+     setup and 10 PCG iterations; after the count, the block-Jacobi setup
+     split into ``diagonal_blocks`` and the factorisation (as after phase 3
+     for K), and one apply under ``torch.profiler`` split into #2, #3, #4
+     and the glue (and the gathers in it), as after phases 3, 5 and 6 (K's
+     apply, P's NP apply, P's recompressed store's apply);
   3. problem K, the regression solve (N = 2^15 Halton points scaled by 32,
      c_leaf = 256, sigma2 = 1e-2, tol = 1e-3, R = 8 sinusoid targets):
      block-Jacobi PCG to convergence through the kernels and through the
@@ -81,7 +88,11 @@ Phases (any failure ends the run with a non-zero exit code):
 
 Kernel launch counts are set to 0 before each of phases 2 to 8 and read
 after it: each phase must have launched the kernels of its own path
-(``PATH_KERNELS``), and every kernel must have run on the main path.  The
+(``PATH_KERNELS``), and every kernel must have run on the main path.
+Kernel, plain and library times are device times: CUDA events around calls
+enqueued behind a device-side sleep (``gpu_ms``), so that a wrapper's host
+cost per call is not counted; path times (applies, iterations) are calls
+made back to back (``stream_ms``).  The
 last lines are a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A detailed record goes to
 ``chiprun_out/chip_smoke.json``.
@@ -90,6 +101,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
+import itertools
 import json
 import math
 import subprocess
@@ -175,12 +188,28 @@ def require(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def gpu_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events."""
+def gpu_ms(fn, reps: int = 3, warmup: int = 1) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events
+    around calls enqueued behind a device-side sleep: the host's cost per
+    call (ctypes, checks, allocation) is hidden, so that a kernel shorter
+    than that cost is timed on the device alone.  Every kernel's time."""
+    return _events_ms(fn, reps, warmup, queued=True)
+
+
+def stream_ms(fn, reps: int = 3, warmup: int = 1) -> float:
+    """Mean time of ``fn()`` over ``reps`` calls made back to back, by CUDA
+    events: the host's cost per call is counted where it exceeds the
+    device's.  End-to-end path times, and a wrapper's host-bound rate."""
+    return _events_ms(fn, reps, warmup, queued=False)
+
+
+def _events_ms(fn, reps: int, warmup: int, queued: bool) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(int(2e6 + reps * 1e5))
     start.record()
     for _ in range(reps):
         fn()
@@ -423,12 +452,69 @@ def solve_bound(b: int, c: int, r: int, sweeps: int = 1) -> tuple[float, str]:
     return bound_ms(4.0 * (sweeps * b * c * (c + 1) / 2 + 2 * b * c * r), 2.0 * b * c * c * r)
 
 
+CHOL_PARTS = ("diagonal", "panel", "update")   # the kinds of #5's launches
+
+
+def cholesky_work(b: int, c: int) -> tuple[float, str]:
+    """#5's bound: A's lower triangle read and L written once, against
+    c^3 / 3 flops a block."""
+    return bound_ms(4.0 * b * (c * (c + 1) / 2 + c * c), b * c ** 3 / 3.0)
+
+
+def cholesky_split(a: torch.Tensor, want: torch.Tensor, reps: int = 3) -> dict:
+    """Route L's device time by part (diagonal tiles, panels, trailing
+    updates): CUDA events around each launch of a call, made one by one
+    through the C entry ``repro_block_cholesky_part`` (which names each
+    launch's kind, -1 past the last), summed by kind, mean over ``reps``
+    calls; the launches in order must give the wrapper's bits ``want``."""
+    from repro_torch import _build
+    from repro_torch.kernels import stream_handle
+    b, c = a.shape[0], a.shape[1]
+    lmat, dinv, kind = torch.empty_like(a), torch.empty((b, c), device=a.device), ctypes.c_int()
+    fn = _build.c_function("block_cholesky", "repro_block_cholesky_part",
+                           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                           + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    stream = stream_handle(a.device)
+    events = {part: [] for part in CHOL_PARTS}
+    for rep in range(reps + 1):
+        for index in itertools.count():
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            _build.check(fn(a.data_ptr(), lmat.data_ptr(), dinv.data_ptr(), b, c, index,
+                            ctypes.byref(kind), stream), f"batched_block_cholesky launch {index}")
+            end.record()
+            if kind.value < 0:
+                break
+            if rep:                                       # the first call warms up
+                events[CHOL_PARTS[kind.value]].append((start, end))
+    torch.cuda.synchronize()
+    split = {part: sum(s.elapsed_time(e) for s, e in ev) / reps for part, ev in events.items()}
+    split["launches_per_call"] = sum(len(ev) for ev in events.values()) // reps
+    split["parts_equal_wrapper_bits"] = bool(torch.equal(lmat, want))
+    require(split["parts_equal_wrapper_bits"], "batched_block_cholesky: the parts launched one "
+            "by one do not give the wrapper's bits")
+    return split
+
+
+def cholesky_times(a: torch.Tensor, reps: int, plain_reps: int) -> dict:
+    from repro_torch.kernels.batched_block_solve.kernel import batched_block_cholesky_cuda
+    from repro_torch.kernels.batched_block_solve.ref import batched_block_cholesky_ref
+    b, c = a.shape[0], a.shape[1]
+    bms, by = cholesky_work(b, c)
+    return {"B": b, "c": c, "ms": gpu_ms(lambda: batched_block_cholesky_cuda(a), reps),
+            "wrapper_back_to_back_ms": stream_ms(lambda: batched_block_cholesky_cuda(a), reps),
+            "plain_ms": gpu_ms(lambda: batched_block_cholesky_ref(a), plain_reps),
+            "library_ms": gpu_ms(lambda: torch.linalg.cholesky(a), reps),
+            "bound_ms": bms, "bound_by": by}
+
+
 def check_cholesky(hm_p, hm_k, rng, record):
     from repro_torch.kernels.batched_block_solve.kernel import (
         batched_block_cholesky_cuda, batched_block_cholesky_solve_cuda)
     from repro_torch.kernels.batched_block_solve.ref import (
         batched_block_cholesky_ref, batched_block_cholesky_solve_ref)
-    chol_checks, solve_checks = [], []
+    chol_checks, solve_checks, shapes, clamped = [], [], {}, []
     for name, hm, count in (("K", hm_k, None), ("P", hm_p, 32)):
         a = shifted_diagonal(hm, 1e-2, count)
         l_k = batched_block_cholesky_cuda(a)
@@ -436,12 +522,44 @@ def check_cholesky(hm_p, hm_k, rng, record):
         err = rel_err(l_k, l_r)
         recon = rel_err(torch.bmm(l_k, l_k.transpose(1, 2)), a)
         upper_zero = bool((torch.triu(l_k, diagonal=1) == 0).all())
+        same = bool(torch.equal(l_k, batched_block_cholesky_cuda(a)))
         chol_checks.append({"problem": name, "B": a.shape[0], "c": a.shape[1], "rel_err": err,
-                            "max_abs_err": max_abs(l_k, l_r), "llt_rel_err": recon})
+                            "max_abs_err": max_abs(l_k, l_r), "llt_rel_err": recon,
+                            "two_calls_bit_identical": same})
         require(err <= 1e-4, f"batched_block_cholesky {name}: rel err {err}")
         require(recon <= 1e-5, f"batched_block_cholesky {name}: |LL^T - A|/|A| = {recon}")
         require(upper_zero, f"batched_block_cholesky {name}: nonzero above the diagonal")
-        x = randn((a.shape[0], a.shape[1], 8), rng)
+        require(same, f"batched_block_cholesky {name}: two calls are not bit-identical")
+        # B = 1, as H-LU's FACTOR runs it
+        one = a[:1].contiguous()
+        l_one = batched_block_cholesky_cuda(one)
+        err_one = rel_err(l_one, batched_block_cholesky_ref(one))
+        recon_one = rel_err(torch.bmm(l_one, l_one.transpose(1, 2)), one)
+        chol_checks.append({"problem": f"{name} B=1", "B": 1, "c": a.shape[1],
+                            "rel_err": err_one, "max_abs_err": max_abs(l_one, l_k[:1]),
+                            "llt_rel_err": recon_one})
+        require(err_one <= 1e-4 and recon_one <= 1e-5,
+                f"batched_block_cholesky {name} B=1: rel err {err_one}, |LL^T - A|/|A| "
+                f"{recon_one}")
+        # a clamped pivot: row and column 40 of the first block zeroed
+        z = a[:1].clone()
+        z[:, 40, :] = 0.0
+        z[:, :, 40] = 0.0
+        lz, lz_r = batched_block_cholesky_cuda(z), batched_block_cholesky_ref(z)
+        row = {"problem": name, "c": z.shape[1], "rel_err": rel_err(lz, lz_r),
+               "max_abs_err": max_abs(lz, lz_r), "finite": bool(torch.isfinite(lz).all()),
+               "column_40_zero": bool((lz[:, :, 40] == 0).all())}
+        clamped.append(row)
+        require(row["finite"] and row["column_40_zero"] and row["rel_err"] <= 1e-4,
+                f"batched_block_cholesky {name}, clamped pivot: {row}")
+        if name == "K":
+            shapes["K"] = cholesky_times(a, 20, 2)
+            shapes["K_B1"] = cholesky_times(one, 50, 2)
+            x = randn((a.shape[0], a.shape[1], 8), rng)
+        else:
+            shapes["P_32"] = cholesky_times(a, 3, 1)
+            split = cholesky_split(a, l_k)
+            x = randn((a.shape[0], a.shape[1], 8), rng)
         y_k = batched_block_cholesky_solve_cuda(l_k, x)
         y_r = batched_block_cholesky_solve_ref(l_k, x)
         err = rel_err(y_k, y_r)
@@ -457,18 +575,15 @@ def check_cholesky(hm_p, hm_k, rng, record):
                        "library_ms": gpu_ms(lambda: torch.cholesky_solve(x, l_k), 20),
                        "bound_ms": solve_bound(b, c, 8)[0],
                        "two_sweep_floor_ms": solve_bound(b, c, 8, sweeps=2)[0]}
-        if name == "P":
-            b, c = a.shape[0], a.shape[1]
-            ms = gpu_ms(lambda: batched_block_cholesky_cuda(a), 3)
-            plain = gpu_ms(lambda: batched_block_cholesky_ref(a), 1)
-            lib = gpu_ms(lambda: torch.linalg.cholesky(a), 3)
-            bms, by = bound_ms(4.0 * 2 * b * c * c, b * c ** 3 / 3.0)
-            record["batched_block_cholesky"] = {
-                "checks": chol_checks, "max_abs_err": max(ch["max_abs_err"] for ch in chol_checks),
-                "rel_err": max(ch["rel_err"] for ch in chol_checks), "ms": ms,
-                "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib,
-                "timed_shape": f"B={b} c={c} (diagonal blocks of problem P)"}
-            del a, l_r
+        del a, l_r, z
+    timed = shapes["P_32"]
+    record["batched_block_cholesky"] = {
+        "checks": chol_checks, "max_abs_err": max(ch["max_abs_err"] for ch in chol_checks),
+        "rel_err": max(ch["rel_err"] for ch in chol_checks), "ms": timed["ms"],
+        "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"], "library_ms": timed["library_ms"], "shapes": shapes,
+        "split_P_32": split, "clamped_pivot": clamped,
+        "timed_shape": f"B={timed['B']} c={timed['c']} (diagonal blocks of problem P)"}
     # the solve is timed at the PCG's own shape: all 512 blocks of problem P
     chol_p = batched_block_cholesky_cuda(shifted_diagonal(hm_p, 1e-2, None))
     b, c = chol_p.shape[0], chol_p.shape[1]
@@ -532,8 +647,30 @@ def check_morton(pts_p, record):
     codes = morton_encode_cuda(unit)
     same = bool(torch.equal(codes, morton_encode_ref(unit)))
     require(same, "morton_encode: codes differ from the plain version")
+    # edge points: 0, 1, the float just below 1, outside the box, the
+    # nb >= 25 clamp at d = 1; N odd (two points a thread); a base that is
+    # not 16-byte aligned
+    below = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+    edge_checks = []
+    for d in (1, 2, 3):
+        edges = torch.tensor([[0.0] * d, [1.0] * d, [below] * d, [-0.5] * d, [2.0] * d,
+                              [1.0] + [0.0] * (d - 1), [0.0] * (d - 1) + [below]],
+                             device=unit.device)
+        pts = torch.cat([edges, unit[:1001, :1].repeat(1, d)])       # N = 1008
+        for label, view in (("N=1008", pts), ("N=1007", pts[:-1]),
+                            ("unaligned base", torch.cat([edges[:1], pts])[1:])):
+            equal = bool(torch.equal(morton_encode_cuda(view), morton_encode_ref(view)))
+            edge_checks.append({"d": d, "case": label, "codes_equal": equal})
+            require(equal, f"morton_encode: edge points d={d} ({label}) differ from the plain "
+                    "version")
+    odd = unit[:-1]
+    same_odd = bool(torch.equal(morton_encode_cuda(odd), codes[:-1]))
+    edge_checks.append({"d": 2, "case": f"P's points less one (N={odd.shape[0]})",
+                        "codes_equal": same_odd})
+    require(same_odd, "morton_encode: P's points less one differ from the plain version")
     n, d = unit.shape
-    ms = gpu_ms(lambda: morton_encode_cuda(unit), 20)
+    ms = gpu_ms(lambda: morton_encode_cuda(unit), 50)
+    wrapper_ms = stream_ms(lambda: morton_encode_cuda(unit), 20)
     plain = gpu_ms(lambda: morton_encode_ref(unit), 3)
     # the fewest operations: a magic-number bit spread, ceil(log2 nb) steps of
     # shift, or and mask on a 64-bit word (2 int32 operations each) per
@@ -541,9 +678,42 @@ def check_morton(pts_p, record):
     spread_ops = 6 * math.ceil(math.log2(bits_per_dim(d))) + 2
     bms, by = bound_ms(4.0 * n * d + 8.0 * n, float(n * d * spread_ops), PEAK_INT32)
     record["morton_encode"] = {
-        "codes_equal": same, "max_abs_err": 0.0 if same else None, "ms": ms,
+        "codes_equal": same, "edge_checks": edge_checks,
+        "max_abs_err": 0.0 if same else None, "ms": ms, "wrapper_back_to_back_ms": wrapper_ms,
         "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None,
         "timed_shape": f"N={n} d={d} (the points of problem P)"}
+
+
+def log_cholesky_morton(kernels: dict, card: str) -> None:
+    """Phase 1's lines for #5 (times at every shape, the split, the checks)
+    and #7 (edge points), each time with the card."""
+    chol = kernels["batched_block_cholesky"]
+    for label, row in chol["shapes"].items():
+        log(f"[1] batched_block_cholesky {label} (B={row['B']}, c={row['c']}): "
+            f"{row['ms']:.4f} ms of device time, through the wrapper back to back "
+            f"{row['wrapper_back_to_back_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {card}")
+    sp = chol["split_P_32"]
+    log(f"[1] batched_block_cholesky P (32 blocks) by part: diagonal tiles "
+        f"{sp['diagonal']:.4f} ms, panels {sp['panel']:.4f} ms, trailing updates "
+        f"{sp['update']:.4f} ms ({sp['launches_per_call']} launches a call; the parts give "
+        f"the wrapper's bits: {sp['parts_equal_wrapper_bits']}); {card}")
+    for ch in chol["checks"]:
+        log(f"[1] batched_block_cholesky {ch['problem']} (B={ch['B']}, c={ch['c']}): rel err "
+            f"{ch['rel_err']:.3e}, |LL^T - A|/|A| {ch['llt_rel_err']:.3e}, two calls "
+            f"bit-identical {ch.get('two_calls_bit_identical', '-')}")
+    for row in chol["clamped_pivot"]:
+        log(f"[1] batched_block_cholesky {row['problem']} block 0 with row and column 40 "
+            f"zeroed (c={row['c']}): rel err {row['rel_err']:.3e} against the plain version, "
+            f"finite {row['finite']}, column 40 zero {row['column_40_zero']}")
+    mo = kernels["morton_encode"]
+    log(f"[1] morton_encode on P's points: {mo['ms']:.4f} ms of device time, "
+        f"{mo['wrapper_back_to_back_ms']:.4f} ms through the wrapper back to back (host-bound), "
+        f"bound {mo['bound_ms']:.4f} ms; {card}")
+    log(f"[1] morton_encode edge points: "
+        + ", ".join(f"d={e['d']} {e['case']} {e['codes_equal']}"
+                    for e in kernels["morton_encode"]["edge_checks"]))
 
 
 def aca_work(b: int, m: int, n: int, k: int) -> tuple[float, float]:
@@ -930,6 +1100,7 @@ def check_trsm(hm_k, rng, record):
         require(err <= 1e-4, f"batched_trsm_panels B=1 P={p}: rel err {err}")
         b1[f"(1, {c}, {p})"] = {
             "ms": gpu_ms(lambda: batched_trsm_panels_cuda(lmat, x), 50), "rel_err": err,
+            "wrapper_back_to_back_ms": stream_ms(lambda: batched_trsm_panels_cuda(lmat, x), 50),
             "library_ms": gpu_ms(lambda: torch.linalg.solve_triangular(lmat, x, upper=False),
                                  50)}
     record["batched_trsm_panels"] = {
@@ -970,6 +1141,8 @@ def check_schur(rng, record):
         require(err <= 1e-5, f"batched_schur_dense B=1 p={p}: rel err {err}")
         b1[f"(1, 256, 256, p={p})"] = {
             "ms": gpu_ms(lambda: batched_schur_dense_cuda(cc, a, bb), 50), "rel_err": err,
+            "wrapper_back_to_back_ms": stream_ms(lambda: batched_schur_dense_cuda(cc, a, bb),
+                                                 50),
             "library_ms": gpu_ms(lambda: torch.baddbmm(cc, a, bb.transpose(1, 2), alpha=-1), 50)}
     record["batched_schur_dense"] = {
         "widths": sweep_schur(torch.Generator("cuda").manual_seed(SEED)), "checks": checks,
@@ -1083,10 +1256,10 @@ def run_problem_p(pts, hm, rng, out):
     apply_h = make_apply(hm)
     x = randn((hm.tree.n, 8), rng)
     z, t_first = wall_s(lambda: apply_h(x))
-    apply_ms = gpu_ms(lambda: apply_h(x), 3, warmup=0)
+    apply_ms = stream_ms(lambda: apply_h(x), 3, warmup=0)
     vec = x[:, 0].contiguous()
     z1 = apply_h(vec)
-    apply_vec_ms = gpu_ms(lambda: apply_h(vec), 3, warmup=0)
+    apply_vec_ms = stream_ms(lambda: apply_h(vec), 3, warmup=0)
     idx = torch.from_numpy(np.sort(rng.choice(hm.tree.n, 512, replace=False))).cuda()
     exact = exact_rows(pts, idx, x)
     err = rel_err(z[idx], exact)
@@ -1231,8 +1404,8 @@ def run_np_mode(pts_p, pts_k, iters_kern, allowed, rng, out):
     idx = torch.from_numpy(np.sort(rng.choice(hm.tree.n, 512, replace=False))).cuda()
     exact = exact_rows(pts_p, idx, x)
     err, err_vec = rel_err(z[idx], exact), rel_err(z1[idx], exact[:, 0])
-    apply_ms = gpu_ms(lambda: apply_h(x), 2, warmup=0)
-    apply_vec_ms = gpu_ms(lambda: apply_h(vec), 2, warmup=0)
+    apply_ms = stream_ms(lambda: apply_h(x), 2, warmup=0)
+    apply_vec_ms = stream_ms(lambda: apply_h(vec), 2, warmup=0)
     out["P_np"] = {"first_apply_s": t_first, "apply_ms_R8": apply_ms,
                    "apply_ms_vector": apply_vec_ms, "sampled_rows_rel_err_R8": err,
                    "sampled_rows_rel_err_vector": err_vec, "applies_bit_identical": identical}
@@ -1309,6 +1482,25 @@ def apply_split(hm, rng) -> dict:
             "glue_top": glue[:8]}
 
 
+def setup_split(hm) -> dict:
+    """The block-Jacobi setup (``build_preconditioner``) in its two parts on
+    the host clock, after the phase's own setup: the shifted diagonal blocks
+    (``diagonal_blocks``) and their factorisation (#5 through its dispatch)."""
+    from repro_torch.core import diagonal_blocks
+    from repro_torch.kernels.batched_block_solve.ops import batched_block_cholesky
+    blocks, t_blocks = wall_s(lambda: diagonal_blocks(hm))
+    blocks.diagonal(dim1=1, dim2=2).add_(1e-2)
+    _, t_chol = wall_s(lambda: batched_block_cholesky(blocks))
+    return {"B": blocks.shape[0], "c": blocks.shape[1], "diagonal_blocks_s": t_blocks,
+            "cholesky_s": t_chol}
+
+
+def log_setup_split(key: str, split: dict, card: str) -> None:
+    log(f"[{key} setup] block-Jacobi setup by part ({split['B']} blocks of {split['c']}): "
+        f"diagonal_blocks {split['diagonal_blocks_s']:.4f} s, batched_block_cholesky "
+        f"{split['cholesky_s']:.4f} s; {card}")
+
+
 def log_apply_split(key: str, split: dict) -> None:
     parts = ", ".join(f"{k} {v:.3f} ms ({split['parts_launches'][k]} launches)"
                       for k, v in split["parts_ms"].items())
@@ -1337,7 +1529,7 @@ def run_memory_tier(pts_p, rng, out):
     x = randn((hm.tree.n, 8), rng)
     idx = torch.from_numpy(np.sort(rng.choice(hm.tree.n, 512, replace=False))).cuda()
     z_flat = make_apply(hm)(x)[idx]
-    flat_ms = gpu_ms(lambda: make_apply(hm)(x), 3)
+    flat_ms = stream_ms(lambda: make_apply(hm)(x), 3)
     res = {"flat_bytes": flat.nbytes()["total"], "flat_apply_ms_R8": flat_ms}
     log(f"[memory tier] flat store {res['flat_bytes']} bytes, apply R=8 {flat_ms:.3f} ms")
     hm_1e2 = None
@@ -1347,7 +1539,7 @@ def run_memory_tier(pts_p, rng, out):
         hm_t = dataclasses.replace(hm, factors=store)
         apply_t = make_apply(hm_t)
         err = rel_err(apply_t(x)[idx], z_flat)
-        ms = gpu_ms(lambda: apply_t(x), 3)
+        ms = stream_ms(lambda: apply_t(x), 3)
         res[f"tol_{tol}"] = {
             "bytes_before": report.bytes_before, "bytes_after": report.bytes_after,
             "ratio": report.ratio, "per_level_k": report.per_level_k,
@@ -1573,8 +1765,8 @@ def run_hlu_measurements(hm, pre, f, rng, out):
     # per iteration: one H-LU solve and one apply on an (n_pad, 8) panel
     x = randn((hm.tree.n, 8), rng)
     r_pad = permute_to_tree(hm.tree, x)
-    res["hlu_solve_panels_ms"] = gpu_ms(lambda: hlu_solve_panels(pre.factors, r_pad), 3)
-    res["apply_ms_R8"] = gpu_ms(lambda: make_apply(hm)(x), 3)
+    res["hlu_solve_panels_ms"] = stream_ms(lambda: hlu_solve_panels(pre.factors, r_pad), 3)
+    res["apply_ms_R8"] = stream_ms(lambda: make_apply(hm)(x), 3)
     res["ms_per_iteration"] = res["hlu_solve_panels_ms"] + res["apply_ms_R8"]
     log(f"[H-LU] per iteration: hlu_solve_panels {res['hlu_solve_panels_ms']:.3f} ms + apply "
         f"{res['apply_ms_R8']:.3f} ms")
@@ -1858,9 +2050,9 @@ def main(record: dict) -> int:
         check_schur(rng, record["kernels"])
         check_nearfield(record["kernels"])
         for name, rec in record["kernels"].items():
-            log(f"[1] {name}: max abs err {rec['max_abs_err']:.3e}, kernel {rec['ms']:.3f} ms, "
+            log(f"[1] {name}: max abs err {rec['max_abs_err']:.3e}, kernel {rec['ms']:.4f} ms, "
                 f"plain {rec['plain_ms']:.3f} ms, library {rec['library_ms']}, bound "
-                f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}); {rec['timed_shape']}")
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); {rec['timed_shape']}; {card}")
         lowrank = record["kernels"]["batched_lowrank_matmat"]
         for g in lowrank["groups"]:
             times = (f"gathered {g['ms']:.3f} ms (with gather + _scatter_rows "
@@ -1877,6 +2069,7 @@ def main(record: dict) -> int:
         log(f"[1] batched_block_cholesky_solve at K's shape ({ks['B']}, {ks['c']}, R=8): kernel "
             f"{ks['ms']:.4f} ms, plain {ks['plain_ms']:.3f}, library {ks['library_ms']:.4f}, "
             f"bound {ks['bound_ms']:.4f} (two sweeps {ks['two_sweep_floor_ms']:.4f})")
+        log_cholesky_morton(record["kernels"], card)
         dense = record["kernels"]["batched_kernel_matmat"]
         for name, w in dense["whole_dense_group"].items():
             log(f"[1] batched_kernel_matmat on all {w['blocks']} dense leaves of {name} (C="
@@ -1946,6 +2139,9 @@ def main(record: dict) -> int:
         _build.reset_launches()
         run_problem_p(pts_p, hm_p, rng, record)
         count_launches("P")
+        record["P"]["setup_split"] = setup_split(hm_p)
+        log_setup_split("P", record["P"]["setup_split"], card)
+        torch.cuda.empty_cache()
         record["P"]["apply_split"] = apply_split(hm_p, rng)
         log_apply_split("P", record["P"]["apply_split"])
     del hm_p
@@ -1954,6 +2150,8 @@ def main(record: dict) -> int:
         _build.reset_launches()
         f, c_kern, iters_kern = run_problem_k(pts_k, hm_k, record)
         count_launches("K")
+        record["K"]["setup_split"] = setup_split(hm_k)
+        log_setup_split("K", record["K"]["setup_split"], card)
         record["K"]["apply_split"] = apply_split(hm_k, rng)
         log_apply_split("K", record["K"]["apply_split"])
         allowed = run_problem_k_plain(hm_k, f, c_kern, iters_kern, record)

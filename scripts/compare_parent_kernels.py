@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
 """Hold this checkout's batched ACA (#3), dense-leaf product (#2), low-rank
-apply (#4), block-Jacobi solve (#6), recompression (#8) and H-attention near
-field (#11) against an earlier checkout's, on the card: bits, ranks or
-values, and times.
+apply (#4), block Cholesky (#5), block-Jacobi solve (#6), Morton encode
+(#7), recompression (#8) and H-attention near field (#11) against an
+earlier checkout's, on the card: bits, ranks or values, and times.
 
-    python3 scripts/compare_parent_kernels.py PARENT_DIR [--kernels 2,3,4,6,8,11] [--end-to-end]
+    python3 scripts/compare_parent_kernels.py PARENT_DIR [--kernels 2,3,4,5,6,7,8,11] [--end-to-end]
 
 PARENT_DIR is another checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked under ``build/``).  The
 picked kernels' sources among its ``src/repro_torch/csrc/aca.cu``,
-``dense_matmat.cu``, ``lowrank_matmat.cu``, ``block_cholesky_solve.cu``,
-``recompress.cu`` and ``hattention_nearfield.cu`` are built with nvcc into
+``dense_matmat.cu``, ``lowrank_matmat.cu``, ``block_cholesky.cu``,
+``block_cholesky_solve.cu``, ``morton.cu``, ``recompress.cu`` and
+``hattention_nearfield.cu`` are built with nvcc into
 ``build/parent_kernels/`` and called through their own C entries
 (``repro_batched_aca`` with a ``(B, m)`` residual scratch and no route;
 ``repro_dense_matmat`` on gathered blocks; ``repro_lowrank_matmat`` on
-gathered blocks with its split scratch; ``repro_block_cholesky_solve``,
+gathered blocks with its split scratch; ``repro_block_cholesky`` with a
+``(B, c)`` scratch; ``repro_block_cholesky_solve``, ``repro_morton_encode``,
 ``repro_batched_recompress`` and ``repro_hattention_nearfield``, whose
 signatures are this checkout's).  ``--kernels`` picks the kernels compared
-(default all six).  On problems P (N = 2^20, c_leaf = 2048) and K (N =
+(default all eight).  On problems P (N = 2^20, c_leaf = 2048) and K (N =
 2^15 x 32, c_leaf = 256):
 
 * #3, every level group: U, V and the pivot keys of up to 8 sampled blocks
@@ -51,6 +53,19 @@ signatures are this checkout's).  ``--kernels`` picks the kernels compared
   parent's gathered kernel against this checkout's gathered entry;
 * #6 on all 512 shifted diagonal blocks of P (c = 2048) and all 128 of K
   (c = 256), R = 8: within 1e-4 (relative) of the parent's, timed in turns;
+* #5 on the shifted diagonal blocks (sigma2 = 1e-2) of P, 32 and all 512,
+  all 128 of K's and K's first alone (B = 1, as H-LU's FACTOR runs it):
+  the blocks with a clamped pivot (a diagonal entry of L at or below
+  1e-15, or not finite) must be the same set in this checkout's kernel,
+  its plain version and the parent's kernel; on the other blocks L must
+  lie within 1e-4 (relative) of the parent's and of the plain version's,
+  and two calls must give the same bits; the parent's distance to the
+  plain version, and each of the three factors' distance to the float64
+  factor of the same blocks (``torch.linalg.cholesky``) are recorded; both C entries timed in turns,
+  beside this checkout's wrapper and ``torch.linalg.cholesky`` at the same
+  shape (not at P's 512);
+* #7 on P's 2^20 points scaled to the unit box: the codes of the parent's
+  kernel bit for bit, both C entries timed in turns, beside the wrapper;
 * with ``--end-to-end``, each in its own process on the parent's package
   and on this checkout's, in turns: for #4 and #6, P's apply of an (N, 8)
   panel and of a vector, its PCG iteration (10 iterations after a first
@@ -59,9 +74,15 @@ signatures are this checkout's).  ``--kernels`` picks the kernels compared
   #11, K's H-LU setup (a timed ``factorize_hlu`` after a first one, with
   #8's share by CUDA events around each re-truncation) and the LM's prefill
   of 2 x 8,192 tokens (qwen2.5-14b-hmatrix, 48 layers, bf16, random
-  weights; a timed prefill after a first one).
+  weights; a timed prefill after a first one); for #5 and #7, P's and K's
+  block-Jacobi setup (``make_solver`` after a first one), K's block-Jacobi
+  solve (seconds and iterations), K's H-LU setup and P's device-build plan
+  stage (``BuildReport.plan_s`` after a first build).
 
-Exits non-zero on a difference.  Writes ``chiprun_out/compare_parent_kernels.json``.
+Device times are ``chip_smoke.gpu_ms``: CUDA events around calls enqueued
+behind a device-side sleep, so that the host's cost per call is hidden
+(the wrappers of #5 and #7 are also timed back to back, ``stream_ms``).  Exits non-zero on a
+difference.  Writes ``chiprun_out/compare_parent_kernels.json``.
 """
 from __future__ import annotations
 
@@ -77,7 +98,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
-from chip_smoke import NEARFIELD_SHAPES  # noqa: E402
+from chip_smoke import NEARFIELD_SHAPES, gpu_ms, stream_ms  # noqa: E402
 SEED = 0
 _OLD_ACA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 _DENSE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
@@ -86,6 +107,8 @@ _RECOMPRESS_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_fl
 _NEARFIELD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _OLD_LOWRANK_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SOLVE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_CHOL_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_MORTON_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 # the parent's C entries each kernel number needs: source, entry, argtypes
@@ -94,7 +117,9 @@ _PARENT_ENTRIES = {
     "2": [("dense", "dense_matmat", "repro_dense_matmat", _DENSE_ARGTYPES)],
     "4": [("lowrank", "lowrank_matmat", "repro_lowrank_matmat", _OLD_LOWRANK_ARGTYPES),
           ("lowrank_splits", "lowrank_matmat", "repro_lowrank_splits", [ctypes.c_int])],
+    "5": [("chol", "block_cholesky", "repro_block_cholesky", _CHOL_ARGTYPES)],
     "6": [("solve", "block_cholesky_solve", "repro_block_cholesky_solve", _SOLVE_ARGTYPES)],
+    "7": [("morton", "morton", "repro_morton_encode", _MORTON_ARGTYPES)],
     "8": [("recompress", "recompress", "repro_batched_recompress", _RECOMPRESS_ARGTYPES),
           ("splits", "recompress", "repro_recompress_splits", [ctypes.c_int, ctypes.c_int])],
     "11": [("nearfield", "hattention_nearfield", "repro_hattention_nearfield",
@@ -147,21 +172,9 @@ def parent_aca(fn, points, rid, cid, m, k):
     return u, v, keys
 
 
-def gpu_ms(fn, reps: int = 3) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def in_turns(a, b) -> tuple[float, float]:
+def in_turns(a, b, reps: int = 3) -> tuple[float, float]:
     """Mean device ms of a and b, timed a, b, b, a."""
-    ta1, tb1, tb2, ta2 = gpu_ms(a), gpu_ms(b), gpu_ms(b), gpu_ms(a)
+    ta1, tb1, tb2, ta2 = gpu_ms(a, reps), gpu_ms(b, reps), gpu_ms(b, reps), gpu_ms(a, reps)
     return (ta1 + ta2) / 2, (tb1 + tb2) / 2
 
 
@@ -376,6 +389,120 @@ def compare_solve(parent, name, lmat, gen, rec) -> bool:
     return row["rel_diff_vs_parent"] <= 1e-4
 
 
+def clamped_blocks(lmat: torch.Tensor) -> list:
+    """Blocks with a clamped pivot: a diagonal entry of L at or below 1e-15
+    (d <= 1e-30 gives L_jj = d rsqrt(1e-30)), or not finite."""
+    diag = lmat.diagonal(dim1=1, dim2=2)
+    return torch.nonzero(~(diag > 1e-15).all(dim=1)).flatten().tolist()
+
+
+def rel_kept(x, y, keep, chunk: int = 32) -> float:
+    """Relative difference of x to y over the blocks where keep is set, a
+    chunk of blocks at a time (P's 512 blocks fill 8 GiB each)."""
+    diff = ref = 0.0
+    for i0 in range(0, x.shape[0], chunk):
+        k = keep[i0:i0 + chunk]
+        xs, ys = x[i0:i0 + chunk][k].double(), y[i0:i0 + chunk][k].double()
+        diff += float(((xs - ys) ** 2).sum())
+        ref += float((ys ** 2).sum())
+    return (diff / ref) ** 0.5 if ref > 0 else (0.0 if diff == 0 else float("inf"))
+
+
+def float64_rel_errs(a, factors: dict, keep, chunk: int = 32) -> dict:
+    """Relative distance of each float32 factor to A's float64 Cholesky
+    factor, over the blocks where keep is set and the float64 factorisation
+    succeeds (their count beside), a chunk of blocks at a time."""
+    diff, ref, failed = dict.fromkeys(factors, 0.0), 0.0, 0
+    for i0 in range(0, a.shape[0], chunk):
+        l64, info = torch.linalg.cholesky_ex(a[i0:i0 + chunk].double())
+        failed += int((info != 0).sum())
+        k = keep[i0:i0 + chunk] & (info == 0)
+        l64 = l64[k]
+        ref += float((l64 ** 2).sum())
+        for name, lmat in factors.items():
+            diff[name] += float(((lmat[i0:i0 + chunk][k].double() - l64) ** 2).sum())
+    out = {name: (d / ref) ** 0.5 for name, d in diff.items()}
+    out["float64_failed_blocks"] = failed
+    return out
+
+
+def compare_cholesky(parent, label, a, reps, rec) -> bool:
+    """#5 against the parent's kernel and the plain version: the same
+    clamped blocks, values within 1e-4 on the others, two calls
+    bit-identical; the three factors' distances to each other and to the
+    float64 factor; times in turns."""
+    from repro_torch import _build
+    from repro_torch.kernels import stream_handle
+    from repro_torch.kernels.batched_block_solve.kernel import batched_block_cholesky_cuda
+    from repro_torch.kernels.batched_block_solve.ref import batched_block_cholesky_ref
+    b, c = a.shape[0], a.shape[1]
+    l_par = torch.empty_like(a)
+    scratch = torch.empty((b, c), device=a.device)
+
+    def par():
+        _build.check(parent["chol"](a.data_ptr(), l_par.data_ptr(), scratch.data_ptr(), b, c,
+                                    stream_handle(a.device)), "parent block_cholesky")
+    par()
+    got = batched_block_cholesky_cuda(a)
+    same_bits = bool(torch.equal(got, batched_block_cholesky_cuda(a)))
+    plain = batched_block_cholesky_ref(a)
+    sets = {"kernel": clamped_blocks(got), "plain": clamped_blocks(plain),
+            "parent": clamped_blocks(l_par)}
+    keep = torch.ones(b, dtype=torch.bool, device=a.device)
+    keep[sorted(set(sets["kernel"]) | set(sets["parent"]) | set(sets["plain"]))] = False
+    row = {"B": b, "c": c, "clamped_blocks": sets, "two_calls_bit_identical": same_bits,
+           "compared_blocks": int(keep.sum()),
+           "rel_diff_vs_parent": rel_kept(got, l_par, keep),
+           "rel_diff_vs_plain": rel_kept(got, plain, keep),
+           "rel_diff_parent_vs_plain": rel_kept(l_par, plain, keep),
+           "rel_err_vs_float64": float64_rel_errs(a, {"kernel": got, "parent": l_par,
+                                                      "plain": plain}, keep)}
+    del plain
+    torch.cuda.empty_cache()
+    l_new = torch.empty_like(a)
+    entry = _build.c_function("block_cholesky", "repro_block_cholesky", _CHOL_ARGTYPES)
+
+    def new():
+        _build.check(entry(a.data_ptr(), l_new.data_ptr(), scratch.data_ptr(), b, c,
+                           stream_handle(a.device)), "block_cholesky")
+    row["parent_ms"], row["ms"] = in_turns(par, new, reps)
+    row["wrapper_back_to_back_ms"] = stream_ms(lambda: batched_block_cholesky_cuda(a), reps)
+    row["library_ms"] = gpu_ms(lambda: torch.linalg.cholesky(a), reps) if b * c <= 65536 else None
+    rec[f"cholesky_{label}"] = row
+    print(f"[#5 {label}] {row}", flush=True)
+    return (same_bits and sets["kernel"] == sets["plain"] == sets["parent"]
+            and row["rel_diff_vs_parent"] <= 1e-4 and row["rel_diff_vs_plain"] <= 1e-4)
+
+
+def compare_morton(parent, pts, rec) -> bool:
+    """#7 on P's points in the unit box: the parent's codes bit for bit."""
+    from repro_torch import _build
+    from repro_torch.kernels import stream_handle
+    from repro_torch.kernels.morton.kernel import morton_encode_cuda
+    lo, hi = pts.amin(dim=0), pts.amax(dim=0)
+    unit = ((pts - lo) / torch.clamp(hi - lo, min=1e-30)).contiguous()
+    n, d = unit.shape
+    codes_par = torch.empty(n, dtype=torch.int64, device=pts.device)
+
+    def par():
+        _build.check(parent["morton"](unit.data_ptr(), codes_par.data_ptr(), n, d,
+                                      stream_handle(pts.device)), "parent morton_encode")
+    codes_new = torch.empty_like(codes_par)
+    entry = _build.c_function("morton", "repro_morton_encode", _MORTON_ARGTYPES)
+
+    def new():
+        _build.check(entry(unit.data_ptr(), codes_new.data_ptr(), n, d,
+                           stream_handle(pts.device)), "morton_encode")
+    par()
+    equal = bool(torch.equal(morton_encode_cuda(unit), codes_par))
+    row = {"N": n, "d": d, "codes_equal_to_parent": equal}
+    row["parent_ms"], row["ms"] = in_turns(par, new, 50)
+    row["wrapper_back_to_back_ms"] = stream_ms(lambda: morton_encode_cuda(unit), 50)
+    rec["morton_P"] = row
+    print(f"[#7 P] {row}", flush=True)
+    return equal
+
+
 def parent_recompress(parent, u, v, tol):
     """The parent's #8 through its C entry: (u2, v2, s, ranks, sweeps)."""
     from repro_torch import _build
@@ -569,6 +696,46 @@ print(json.dumps({"hlu_setup_s": setup_s, "hlu_recompress_s": recompress_s,
 """
 
 
+# For #5 and #7: the block-Jacobi setups, K's solve, K's H-LU setup and P's
+# device-build plan stage.
+_SETUP = r"""
+import json, time, torch
+from repro_torch.core import (build_hmatrix, build_hmatrix_device_report, halton,
+                              sinusoid_targets)
+from repro_torch.harith import factorize_hlu
+from repro_torch.solve import make_solver
+
+def wall(fn):
+    torch.cuda.synchronize(); t0 = time.perf_counter(); out = fn(); torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+out = {}
+pts = halton(1 << 20, 2, device="cuda")
+build_hmatrix_device_report(pts, kernel="gaussian", k=16, c_leaf=2048, eta=1.5)
+torch.cuda.empty_cache()
+_, report = build_hmatrix_device_report(pts, kernel="gaussian", k=16, c_leaf=2048, eta=1.5)
+out["P_device_plan_s"] = report.plan_s
+hm = build_hmatrix(pts, "gaussian", k=16, c_leaf=2048, eta=1.5, precompute=True)
+make_solver(hm, 1e-2, tol=0.0, max_iter=10)
+torch.cuda.empty_cache()
+_, out["P_block_jacobi_setup_s"] = wall(lambda: make_solver(hm, 1e-2, tol=0.0, max_iter=10))
+del hm
+torch.cuda.empty_cache()
+pk = halton(1 << 15, 2, device="cuda") * 32.0
+hk = build_hmatrix(pk, "gaussian", k=16, c_leaf=256, eta=1.5, precompute=True)
+f = sinusoid_targets(pk, 8, 32.0)
+make_solver(hk, 1e-2, tol=1e-3, max_iter=300)
+solver, out["K_block_jacobi_setup_s"] = wall(lambda: make_solver(hk, 1e-2, tol=1e-3,
+                                                                  max_iter=300))
+solver(f)
+(_, info), out["K_solve_s"] = wall(lambda: solver(f))
+out["K_iters_per_column"] = info.iters_per_column.tolist()
+factorize_hlu(hk, 1e-2, tol=1e-3)
+_, out["K_hlu_setup_s"] = wall(lambda: factorize_hlu(hk, 1e-2, tol=1e-3))
+print(json.dumps(out))
+"""
+
+
 def end_to_end(parent_dir: Path, script: str, key: str, rec) -> None:
     """One end-to-end script, parent and this checkout in turns (parent,
     new, new, parent), one process each."""
@@ -590,7 +757,7 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("parent_dir")
-    parser.add_argument("--kernels", default="2,3,4,6,8,11")
+    parser.add_argument("--kernels", default="2,3,4,5,6,7,8,11")
     parser.add_argument("--end-to-end", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -610,12 +777,27 @@ def main() -> int:
         print(f"[#2 SASS] {rec['dense_sass']}", flush=True)
     ok = True
     problems = (("P", 1 << 20, 1.0, 2048), ("K", 1 << 15, 32.0, 256))
-    for name, n, scale, c_leaf in problems if picked & {"2", "3", "4", "6", "8"} else ():
-        if name == "K" and not picked & {"2", "3", "4", "6"}:
+    for name, n, scale, c_leaf in problems if picked & {"2", "3", "4", "5", "6", "7", "8"} else ():
+        if name == "K" and not picked & {"2", "3", "4", "5", "6"}:
             continue
-        hm = build_hmatrix(halton(n, 2, device="cuda") * scale, "gaussian", k=16,
-                           c_leaf=c_leaf, eta=1.5,
+        pts = halton(n, 2, device="cuda") * scale
+        if "7" in picked and name == "P":
+            ok &= compare_morton(parent, pts, rec)
+        hm = build_hmatrix(pts, "gaussian", k=16, c_leaf=c_leaf, eta=1.5,
                            precompute="4" in picked or ("8" in picked and name == "P"))
+        del pts
+        if "5" in picked:
+            from repro_torch.core import diagonal_blocks
+            a = diagonal_blocks(hm)
+            a.diagonal(dim1=1, dim2=2).add_(1e-2)
+            shapes = ((("32", 32, 3), ("all", a.shape[0], 2)) if name == "P"
+                      else (("all", a.shape[0], 20), ("B1", 1, 50)))
+            for label, count, reps in shapes:
+                ok &= compare_cholesky(parent, f"{name}_{label}", a[:count].contiguous(), reps,
+                                       rec)
+                torch.cuda.empty_cache()
+            del a
+            torch.cuda.empty_cache()
         if "4" in picked:
             ok &= compare_lowrank(parent, name, hm, rng, rec)
             torch.cuda.empty_cache()
@@ -656,6 +838,8 @@ def main() -> int:
         end_to_end(Path(args.parent_dir).resolve(), _APPLY_PCG, "end_to_end_apply_pcg", rec)
     if args.end_to_end and picked & {"8", "11"}:
         end_to_end(Path(args.parent_dir).resolve(), _HLU_PREFILL, "end_to_end", rec)
+    if args.end_to_end and picked & {"5", "7"}:
+        end_to_end(Path(args.parent_dir).resolve(), _SETUP, "end_to_end_setup", rec)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "compare_parent_kernels.json").write_text(json.dumps(rec, indent=1))
     print(json.dumps({"ok": ok}))

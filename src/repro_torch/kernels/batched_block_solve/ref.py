@@ -1,10 +1,16 @@
 """Plain PyTorch versions of the batched block Cholesky factorise / solve.
 
-Both follow the CUDA kernels' blocked algorithms (panel / row tiles of
-``NB``) with the reference's pivot rule ``dinv = rsqrt(max(d, 1e-30))`` and
-its division by the diagonal in the substitutions.  They use plain tensor
-operations only; the library factorisations are yardsticks, not parts of
-the port.
+The factorisation is right-looking by panels of ``NB`` columns: each
+diagonal tile by rank-1 steps with the reference's pivot rule
+``dinv = rsqrt(max(d, 1e-30))``, ``L[:, j] = residual[:, j] * dinv``, the
+rows below it by substitution with the same rule, then the rank-``NB``
+trailing update.  That is the blocking of the CUDA kernel's shared-memory
+route (c <= 288); its wide route (steps of 128 columns, each panel by four
+32-column substitutions, a two-level trailing update) computes the same
+function with other sums.  The solve follows the CUDA kernel's tiles of
+``NB``, with the reference's division by the diagonal in both
+substitutions.  Both use plain tensor operations only; the library
+factorisations are yardsticks, not parts of the port.
 """
 from __future__ import annotations
 

@@ -7,8 +7,10 @@ nothing of JAX or ``repro`` so that they run on a GPU machine without JAX:
 
 Tolerances as in ``chip_smoke.py``: 1e-5 relative (Frobenius) for the three
 products and the dense Schur update, 1e-4 for the Cholesky pair with
-``|L L^T - A| / |A| <= 1e-5`` and for the panel triangular solve, Morton
-codes exactly equal, the ACA by the max error of ``U V^T`` against the
+``|L L^T - A| / |A| <= 1e-5`` (the factorisation on both its routes and at
+their boundary, also with a clamped pivot) and for the panel triangular
+solve, Morton codes exactly equal (also on edge points and a base that is
+not 16-byte aligned), the ACA by the max error of ``U V^T`` against the
 block, within ``max(2 x the plain version's, 1e-4)`` (the two may pick
 other pivots on near-ties), and the recompression (Gram + Jacobi against
 the plain QR + SVD) by equal ranks or a reconstruction error within
@@ -25,6 +27,8 @@ gathered entry's bits, and the low-rank level entry the bits of the
 gathered entry followed by ``_scatter_rows``.  With TF32 on, every entry point raises for CUDA
 operands.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -212,6 +216,58 @@ def test_block_cholesky_kernels_match_plain_on_card(cuda_device, c, r):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,c", [(1, 1), (1, 31), (1, 33), (1, 100), (1, 256),
+                                 (1, 288), (1, 289), (1, 512),
+                                 (2, 2048)])
+def test_block_cholesky_routes_on_card(cuda_device, b, c):
+    """#5 on its shared-memory route (c <= 288), its wide route and their
+    boundary, with ragged tiles and c % 4 != 0 (4-byte copies): one launch
+    a call, within 1e-4 of the plain version, |L L^T - A| / |A| <= 1e-5,
+    exact zeros above the diagonal, and two calls bit-identical.  The C
+    entry's launches one by one (``repro_block_cholesky_part``, index 0, 1,
+    ... until kind -1) give the same bits: one launch at c <= 288, three
+    a step of 128 columns above, the last step's diagonal tile alone."""
+    from repro_torch.kernels import stream_handle
+    a = torch.from_numpy(_spd(_rs(c + b), b, c)).to(cuda_device)
+    before = _build.LAUNCHES["batched_block_cholesky"]
+    l_k = batched_block_cholesky(a)
+    assert _build.LAUNCHES["batched_block_cholesky"] == before + 1
+    assert _rel(l_k, batched_block_cholesky_ref(a)) <= 1e-4
+    assert _rel(l_k @ l_k.transpose(1, 2), a) <= 1e-5
+    assert (torch.triu(l_k, diagonal=1) == 0).all()
+    assert torch.equal(l_k, batched_block_cholesky(a))
+    part = _build.c_function("block_cholesky", "repro_block_cholesky_part",
+                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                             + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    l_parts, dinv, kind = torch.empty_like(a), a.new_empty((b, c)), ctypes.c_int()
+    kinds = []
+    while not kinds or kinds[-1] >= 0:
+        _build.check(part(a.data_ptr(), l_parts.data_ptr(), dinv.data_ptr(), b, c, len(kinds),
+                          ctypes.byref(kind), stream_handle(a.device)), "part")
+        kinds.append(kind.value)
+    assert kinds[:-1] == ([0] if c <= 288 else [0, 1, 2] * ((c - 1) // 128) + [0])
+    assert torch.equal(l_parts, l_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [100, 256, 289, 512])
+def test_block_cholesky_clamped_pivot_on_card(cuda_device, c):
+    """Row and column 40 zeroed: the pivot is clamped at 1e-30 on both
+    routes, column 40 of L is exactly zero, and L agrees with the plain
+    version."""
+    a = torch.from_numpy(_spd(_rs(3 * c), 2, c))
+    a[:, 40, :] = 0.0
+    a[:, :, 40] = 0.0
+    a = a.to(cuda_device)
+    l_k = batched_block_cholesky(a)
+    l_r = batched_block_cholesky_ref(a)
+    assert bool(torch.isfinite(l_k).all())
+    assert (l_k[:, :, 40] == 0).all() and (l_r[:, :, 40] == 0).all()
+    assert _rel(l_k, l_r) <= 1e-4
+    assert (torch.triu(l_k, diagonal=1) == 0).all()
+
+
+@pytest.mark.cuda
 def test_build_apply_and_solve_on_card_match_the_cpu_port(cuda_device):
     """The whole path on the card (kernels) against the same path on the CPU
     (plain versions): same plan, apply within 1e-5, solve within tolerance."""
@@ -268,6 +324,26 @@ def test_morton_kernel_matches_plain_on_card(cuda_device, d):
     pts[0], pts[1], pts[2, 0] = 0.0, 1.0, 1.0
     codes = morton_encode(pts.to(cuda_device))
     assert torch.equal(codes.cpu(), morton_encode_ref(pts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 2, 5, 7, 1001])
+def test_morton_kernel_edge_points_on_card(cuda_device, d, n):
+    """The box's corners, 1.0, the float just below 1.0, points outside the
+    box and (d = 1) the nb >= 25 clamp, N not a multiple of the kernel's 2
+    points a thread, and a base that is not 16-byte aligned (a view one
+    point in): the plain version's codes bit for bit."""
+    pts = torch.rand(n, d, generator=torch.Generator().manual_seed(n + d))
+    below = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+    edges = torch.tensor([[0.0] * d, [1.0] * d, [below] * d, [-0.5] * d, [2.0] * d,
+                          [1.0] + [0.0] * (d - 1), [0.0] * (d - 1) + [below]])
+    pts[:min(n, len(edges))] = edges[:n]
+    want = morton_encode_ref(pts)
+    assert torch.equal(morton_encode(pts.to(cuda_device)).cpu(), want)
+    shifted = torch.cat([torch.zeros(1, d), pts]).to(cuda_device)[1:]
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(morton_encode(shifted).cpu(), want)
 
 
 def _aca_err(rows, cols, u, v, kernel):
