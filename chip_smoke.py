@@ -32,7 +32,8 @@ Phases (any failure ends the run with a non-zero exit code):
      Cholesky on 32 of P's blocks (its wide route, also split into diagonal
      tiles, panels and trailing updates by CUDA events), on all of K's
      (128, 256) and at B = 1 (its shared-memory route), each also through
-     the wrapper back to back, beside ``torch.linalg.cholesky``, two calls
+     the wrapper back to back, and on all 512 of P's blocks, beside
+     ``torch.linalg.cholesky``, two calls
      bit-identical, and a block with row and column 40 zeroed (a clamped
      pivot) on both routes; the Morton encode also on edge points);
   2. problem P, the paper's model problem (N = 2^20 Halton points on the
@@ -84,9 +85,31 @@ Phases (any failure ends the run with a non-zero exit code):
      full-width fp32 model through the kernel and through the plain near
      field on the card (logits within 1e-3, layer 0's h_attention within
      1e-4 relative), and its rows below 2 c_leaf against exact causal
-     attention (1e-4).
+     attention (1e-4);
+  9. serving (run after phase 3, on the H-matrices of setup):
+     ``HMatrixServer(hm_p, max_batch=64)``, precompiled, on 150 requests
+     made from the seed (panels of 64, 64 and 32): ``serve()`` and
+     ``serve_async()`` bit-identical, panel 1 equal to ``make_apply`` on its
+     64 columns, 8 results on 512 sampled rows against exact dense rows,
+     requests/s both ways, host pack ms per panel, and the device idle share
+     of one async burst under ``torch.profiler``;
+     ``HMatrixSolveServer(hm_k, 1e-2, tol=1e-3, max_batch=8)`` on 20
+     sinusoid targets (panels of 8, 8 and 4): sync and async bit-identical,
+     iterations per column within 5 of the reference's, residual by a
+     separate apply; K's apply server under ``transient=0.3:1,nan=0.1,seed=7``
+     with output validation on 64 requests: no future fails, every panel
+     bit-identical to the chaos-free ``serve()`` (a NaN panel is relaunched
+     once through the same kernels), the relaunches and retries counted;
+     then a ``MultiTenantRuntime`` with
+     P (weight 2), a K solve tenant and a K apply tenant onboarded from raw
+     coordinates by the device build, under a device-bytes budget below P's
+     and K's stores together: every result within 1e-5 of its solo server,
+     P against the K apply tenant at 2:1 in the launch order while both are
+     backlogged (every request is queued before the first pick), P's store
+     spilled and reloaded (``reload_s``).  Outside the chaos step no
+     retry, panel failure or fallback launch is allowed.
 
-Kernel launch counts are set to 0 before each of phases 2 to 8 and read
+Kernel launch counts are set to 0 before each of phases 2 to 9 and read
 after it: each phase must have launched the kernels of its own path
 (``PATH_KERNELS``), and every kernel must have run on the main path.
 Kernel, plain and library times are device times: CUDA events around calls
@@ -174,6 +197,8 @@ PATH_KERNELS = {
     "hlu": ("batched_block_cholesky", "batched_recompress", "batched_trsm_panels",
             "batched_schur_dense", "batched_kernel_matmat", "batched_lowrank_matmat"),
     "lm_serve": ("hattention_nearfield",),
+    "serve": ("batched_kernel_matmat", "batched_lowrank_matmat", "batched_block_cholesky",
+              "batched_block_cholesky_solve"),
 }
 P_BUILD = dict(kernel="gaussian", k=16, c_leaf=2048, eta=1.5)
 K_BUILD = dict(kernel="gaussian", k=16, c_leaf=256, eta=1.5)
@@ -584,9 +609,18 @@ def check_cholesky(hm_p, hm_k, rng, record):
         "bound_by": timed["bound_by"], "library_ms": timed["library_ms"], "shapes": shapes,
         "split_P_32": split, "clamped_pivot": clamped,
         "timed_shape": f"B={timed['B']} c={timed['c']} (diagonal blocks of problem P)"}
-    # the solve is timed at the PCG's own shape: all 512 blocks of problem P
-    chol_p = batched_block_cholesky_cuda(shifted_diagonal(hm_p, 1e-2, None))
+    # all 512 of P's blocks: the factorization beside torch.linalg.cholesky
+    # (both queued behind the device-side sleep), then the solve at the
+    # PCG's own shape
+    a_all = shifted_diagonal(hm_p, 1e-2, None)
+    chol_p = batched_block_cholesky_cuda(a_all)
     b, c = chol_p.shape[0], chol_p.shape[1]
+    bms, by = cholesky_work(b, c)
+    record["batched_block_cholesky"]["P_all"] = {
+        "B": b, "c": c, "ms": gpu_ms(lambda: batched_block_cholesky_cuda(a_all), 3),
+        "library_ms": gpu_ms(lambda: torch.linalg.cholesky(a_all), 3),
+        "bound_ms": bms, "bound_by": by}
+    del a_all
     x = randn((b, c, 8), rng)
     y_k = batched_block_cholesky_solve_cuda(chol_p, x)
     y_r = batched_block_cholesky_solve_ref(chol_p, x)
@@ -694,6 +728,10 @@ def log_cholesky_morton(kernels: dict, card: str) -> None:
             f"{row['wrapper_back_to_back_ms']:.4f} ms, library "
             f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {card}")
+    pa = chol["P_all"]
+    log(f"[1] batched_block_cholesky on all {pa['B']} of P's blocks (c={pa['c']}): "
+        f"{pa['ms']:.3f} ms of device time, library (torch.linalg.cholesky) "
+        f"{pa['library_ms']:.3f} ms, bound {pa['bound_ms']:.3f} ms ({pa['bound_by']}); {card}")
     sp = chol["split_P_32"]
     log(f"[1] batched_block_cholesky P (32 blocks) by part: diagonal tiles "
         f"{sp['diagonal']:.4f} ms, panels {sp['panel']:.4f} ms, trailing updates "
@@ -1913,8 +1951,10 @@ def run_lm_serve(out):
 
 def device_profile(fn, top: int = 12) -> dict:
     """``fn()`` under ``torch.profiler``: host seconds (ending in a sync),
-    the summed device time of every kernel, the device's idle share of the
-    host time, and the kernels with the most device time."""
+    the summed device time of every kernel and copy, the time the device was
+    busy (the union of their intervals: work on several streams overlaps),
+    the device's idle share of the host time, and the kernels with the most
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, secs = wall_s(fn)
@@ -1922,8 +1962,16 @@ def device_profile(fn, top: int = 12) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
     total_ms = sum(e.device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: -e.device_time_total)
-    return {"host_s": secs, "device_ms": total_ms, "kernel_launches": sum(e.count for e in kernels),
-            "idle_share": max(0.0, 1.0 - total_ms / 1e3 / secs),
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return {"host_s": secs, "device_ms": total_ms, "busy_ms": busy_us / 1e3,
+            "kernel_launches": sum(e.count for e in kernels),
+            "idle_share": max(0.0, 1.0 - busy_us / 1e6 / secs),
             "top": [{"name": e.key[:120], "ms": e.device_time_total / 1e3,
                      "calls": e.count} for e in kernels[:top]]}
 
@@ -2001,10 +2049,287 @@ def run_lm_checks(state: dict, record):
     log(f"[lm] phase 8 wall {rec['phase_s']:.1f} s (main path {rec['main_path_s']:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serving (run after phase 3, on the H-matrices of setup)
+# ---------------------------------------------------------------------------
+
+SERVE_P_REQUESTS = 150          # panels of 64, 64 and a tail of 22 (the 32 bucket)
+SERVE_K_TARGETS = 20            # panels of 8, 8 and a tail of 4
+SERVE_CHAOS = "transient=0.3:1,nan=0.1,seed=7"
+SERVE_CHAOS_REQUESTS = 64       # 8 panels of 8
+TENANT_P_REQUESTS, TENANT_KRAW_REQUESTS = 96, 48    # 12 and 6 panels of 8
+K_SIGMA2 = 1e-2
+
+
+def host_requests(n: int, count: int, seed: int) -> list:
+    """``count`` request vectors of length ``n`` from a seeded generator on the
+    card, brought to the host once: contiguous float32 rows, as a client
+    submits them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return list(torch.randn((count, n), generator=gen, device="cuda").cpu().numpy())
+
+
+def on_card(rows: list) -> torch.Tensor:
+    """Host vectors as the columns of an (N, count) tensor on the card."""
+    return torch.from_numpy(np.stack(rows, axis=1)).cuda()
+
+
+def bit_identical(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def served(srv, batch):
+    """The batch through ``serve()`` and through ``serve_async()`` (results
+    fetched), in turns twice, each timed on the host clock: (sync results,
+    async results, [sync s, async s, sync s, async s])."""
+    times = []
+    for _ in range(2):
+        sync, t_sync = wall_s(lambda: srv.serve(batch))
+        outs, t_async = wall_s(lambda: [f.result(timeout=600) for f in srv.serve_async(batch)])
+        times += [t_sync, t_async]
+    return sync, outs, times
+
+
+def require_clean(stats: dict, what: str) -> None:
+    require(stats["retries"] == 0 and stats["panel_failures"] == 0
+            and stats["fallback_launches"] == 0,
+            f"{what}: {stats['retries']} retries, {stats['panel_failures']} panel failures, "
+            f"{stats['fallback_launches']} fallback launches without chaos")
+
+
+def serve_apply_p(pts_p, hm_p, rng, rec) -> dict:
+    """HMatrixServer on P: sync and async bit-identical, panel 1 equal to
+    make_apply, 8 results against exact dense rows, one profiled burst."""
+    from repro_torch.core import make_apply
+    from repro_torch.serve.step import HMatrixServer
+    qs = host_requests(hm_p.tree.n, SERVE_P_REQUESTS, SEED + 1)
+    srv = HMatrixServer(hm_p, max_batch=64)
+    _, t_pre = wall_s(srv.precompile)
+    sync, outs, times = served(srv, qs)
+    t_sync, t_async = times[2], times[3]
+    srv.runtime.drain()             # the stats of the last panel are in
+    stats = srv.runtime.stats()
+    identical = bit_identical(sync, outs)
+    panel1 = bool(torch.equal(on_card(sync[:64]), make_apply(hm_p)(on_card(qs[:64]))))
+    idx = torch.from_numpy(np.sort(rng.choice(hm_p.tree.n, 512, replace=False))).cuda()
+    err = rel_err(on_card(sync[:8])[idx], exact_rows(pts_p, idx, on_card(qs[:8])))
+    prof = device_profile(lambda: [f.result(timeout=600) for f in srv.serve_async(qs)])
+    srv.close()
+    pack_ms = [s * 1e3 for s in stats["pack_s"]]
+    rec["P_apply"] = {
+        "requests": len(qs), "precompile_s": t_pre, "sync_s": t_sync, "async_s": t_async,
+        "in_turns_s": times,
+        "sync_requests_per_s": len(qs) / t_sync, "async_requests_per_s": len(qs) / t_async,
+        "launched_widths": stats["launched_widths"], "host_pack_ms_per_panel": pack_ms,
+        "async_bit_identical_to_sync": identical, "panel1_bit_identical_to_make_apply": panel1,
+        "sampled_rows_rel_err_8_results": err, "async_burst_profile": prof,
+        "retries": stats["retries"], "panel_failures": stats["panel_failures"],
+        "fallback_launches": stats["fallback_launches"]}
+    log(f"[serve P] {len(qs)} requests, panels {stats['launched_widths']}: sync {t_sync:.3f} s "
+        f"({len(qs) / t_sync:.1f} requests/s), async {t_async:.3f} s ({len(qs) / t_async:.1f} "
+        f"requests/s); host pack ms per panel {[round(m, 3) for m in pack_ms]}; precompile "
+        f"{t_pre:.3f} s")
+    log(f"[serve P] async burst under the profiler: host {prof['host_s']:.3f} s, device "
+        f"{prof['device_ms']:.3f} ms in {prof['kernel_launches']} kernels and copies, busy "
+        f"{prof['busy_ms']:.3f} ms, device idle share {prof['idle_share']:.3f}; async == sync "
+        f"bit for bit {identical}, panel 1 == make_apply {panel1}, 8 results on 512 rows rel "
+        f"err {err:.3e}")
+    for row in prof["top"][:6]:
+        log(f"[serve P]   {row['ms']:.3f} ms in {row['calls']} calls: {row['name'][:80]}")
+    require(identical, "serve P: async results differ from serve()")
+    require(panel1, "serve P: panel 1 of serve() differs from make_apply on its 64 columns")
+    require(err <= 1e-4, f"serve P: rel err on 512 sampled rows {err}")
+    require(stats["launched_widths"] == [64, 64, 32] * 2,
+            f"serve P: launched widths {stats['launched_widths']}")
+    require_clean(stats, "serve P")
+    return {"srv": srv, "queries": qs, "sync": sync}
+
+
+def serve_solve_k(pts_k, hm_k, rec) -> dict:
+    """HMatrixSolveServer on K: sync and async bit-identical, iterations per
+    column within phase 3's spread of the reference, residual by an apply."""
+    from repro_torch.core import make_apply, sinusoid_targets
+    from repro_torch.serve.step import HMatrixSolveServer
+    f = sinusoid_targets(pts_k, SERVE_K_TARGETS, 32.0)
+    targets = list(f.t().contiguous().cpu().numpy())
+    srv = HMatrixSolveServer(hm_k, K_SIGMA2, tol=1e-3, max_iter=300, max_batch=8)
+    srv.precompile()
+    sync, t_sync = wall_s(lambda: srv.serve(targets))
+    iters = [info.iters_per_column.tolist() for info in srv.last_info]
+    outs, t_async = wall_s(lambda: [fut.result(timeout=600) for fut in srv.serve_async(targets)])
+    times = [t_sync, t_async]
+    for _ in range(2):                      # in turns once more, warm
+        t_sync = wall_s(lambda: srv.serve(targets))[1]
+        t_async = wall_s(lambda: [fut.result(timeout=600)
+                                  for fut in srv.serve_async(targets)])[1]
+        times += [t_sync, t_async]
+    srv.close()
+    stats = srv.runtime.stats()
+    identical = bit_identical(sync, outs)
+    c = on_card(sync)
+    resid = rel_err(make_apply(hm_k)(c) + K_SIGMA2 * c, f)
+    flat = [it for panel in iters for it in panel]
+    # targets repeat the 8 sinusoids of phase 3, column j is target j % 8
+    off = [abs(it - K_REFERENCE_ITERS[j % 8]) for j, it in enumerate(flat)]
+    n = len(targets)
+    rec["K_solve"] = {
+        "targets": n, "sync_s": t_sync, "async_s": t_async, "in_turns_s": times,
+        "sync_requests_per_s": n / t_sync, "async_requests_per_s": n / t_async,
+        "launched_widths": stats["launched_widths"], "iters_per_panel": iters,
+        "max_iters_off_reference": max(off), "relative_residual": resid,
+        "async_bit_identical_to_sync": identical,
+        "host_pack_ms_per_panel": [s * 1e3 for s in stats["pack_s"]],
+        "retries": stats["retries"], "panel_failures": stats["panel_failures"],
+        "fallback_launches": stats["fallback_launches"]}
+    log(f"[serve K solve] {n} targets, panels {stats['launched_widths']}: sync {t_sync:.3f} s "
+        f"({n / t_sync:.2f} requests/s), async {t_async:.3f} s ({n / t_async:.2f} requests/s; "
+        f"the PCG reads active.any() on the host every iteration); iterations per panel "
+        f"{iters}; relative residual {resid:.3e}; async == sync bit for bit {identical}")
+    require(identical, "serve K solve: async results differ from serve()")
+    require(max(off) <= 5, f"serve K solve: iterations {iters} not within 5 of the reference "
+            f"{K_REFERENCE_ITERS}")
+    require(resid <= 1e-4, f"serve K solve: relative residual {resid}")
+    require(stats["launched_widths"] == [8, 8, 4] * 3,
+            f"serve K solve: launched widths {stats['launched_widths']}")
+    require_clean(stats, "serve K solve")
+    return {"targets": targets, "sync": sync}
+
+
+def serve_chaos_k(hm_k, rec) -> None:
+    """K's apply server under injected transient faults and NaN panels: no
+    future fails and every panel keeps the chaos-free bits.  A retried panel
+    re-enters the queue; a poisoned one is relaunched once, counted, through
+    the server's own launch, so both cost launches, not bits."""
+    from repro_torch.serve.faults import ResiliencePolicy
+    from repro_torch.serve.step import HMatrixServer
+    qs = host_requests(hm_k.tree.n, SERVE_CHAOS_REQUESTS, SEED + 2)
+    with HMatrixServer(hm_k, max_batch=8, chaos="") as clean:
+        want = clean.serve(qs)
+    srv = HMatrixServer(hm_k, max_batch=8, chaos=SERVE_CHAOS,
+                        resilience=ResiliencePolicy(validate_outputs=True))
+    outs = [f.result(timeout=600) for f in srv.serve_async(qs)]
+    srv.close()
+    stats = srv.runtime.stats()
+    injected = stats["faults_injected"]
+    panels = [(outs[i:i + 8], want[i:i + 8]) for i in range(0, len(qs), 8)]
+    other = [i for i, (got, ref) in enumerate(panels) if not bit_identical(got, ref)]
+    rec["K_chaos"] = {
+        "spec": SERVE_CHAOS, "requests": len(qs), "faults_injected": injected,
+        "retries": stats["retries"], "fallback_launches": stats["fallback_launches"],
+        "panel_failures": stats["panel_failures"], "panels_with_other_bits": other,
+        "events": [kind for _, kind, _ in stats["events"]]}
+    log(f"[serve K chaos] {SERVE_CHAOS}: injected {injected}; retries {stats['retries']}, "
+        f"relaunches {stats['fallback_launches']}, panel failures "
+        f"{stats['panel_failures']}; panels off the chaos-free bits {other}")
+    require(stats["panel_failures"] == 0, "serve K chaos: a panel failed")
+    require(injected["nan"] >= 1 and injected["transient"] >= 1,
+            f"serve K chaos: the schedule injected {injected}")
+    require(stats["fallback_launches"] == injected["nan"],
+            f"serve K chaos: {stats['fallback_launches']} fallback launches for "
+            f"{injected['nan']} NaN panels")
+    require(stats["retries"] >= injected["transient"],
+            f"serve K chaos: {stats['retries']} retries for {injected['transient']} transient "
+            f"faults")
+    require(not other, f"serve K chaos: panels {other} differ from the chaos-free serve()")
+
+
+def serve_tenants(pts_k, hm_p, hm_k, p_served: dict, k_served: dict, rec) -> None:
+    """Three tenants behind one MultiTenantRuntime under a device-bytes budget
+    below P's and K's stores together: every result within 1e-5 relative of
+    its solo server, the launch order at the 2:1 weights, P's store spilled
+    by K's panels and reloaded by its own."""
+    from repro_torch.core import build_hmatrix_device
+    from repro_torch.serve.step import HMatrixServer
+    from repro_torch.serve.tenancy import MultiTenantRuntime, apply_tenant, solve_tenant
+    p_bytes = hm_p.factors.nbytes()["total"]
+    k_bytes = hm_k.factors.nbytes()["total"]
+    budget = p_bytes + k_bytes - 1
+    kr_qs = host_requests(hm_k.tree.n, TENANT_KRAW_REQUESTS, SEED + 3)
+    with HMatrixServer(build_hmatrix_device(pts_k, precompute=True, **K_BUILD),
+                       max_batch=8) as solo:
+        kr_want = solo.serve(kr_qs)
+    p_qs = p_served["queries"][:TENANT_P_REQUESTS]
+    targets = k_served["targets"]
+    mtr = MultiTenantRuntime(device_bytes_budget=budget)
+    tp = mtr.add_tenant("P", p_served["srv"].tenant_spec(weight=2.0, store=hm_p.factors),
+                        max_batch=8)
+    ts = mtr.add_tenant("K_solve", solve_tenant(hm_k, K_SIGMA2, tol=1e-3, max_iter=300))
+    (kr_spec, t_onboard) = wall_s(lambda: apply_tenant(
+        pts_k.cpu().numpy(), max_batch=8, build=dict(precompute=True, **K_BUILD)))
+    tk = mtr.add_tenant("K_raw", kr_spec)
+    t0 = time.perf_counter()
+    # the scheduler takes the runtime's lock to pick a panel: holding it while
+    # every tenant submits makes the first pick one among three backlogged
+    # tenants, whatever the order of the submits
+    with mtr._cv:
+        fs = [ts.submit(q) for q in targets]
+        fk = [tk.submit(q) for q in kr_qs]
+        fp = [tp.submit(q) for q in p_qs]
+    mtr.flush()
+    got_p = [f.result(timeout=600) for f in fp]
+    got_s = [f.result(timeout=600) for f in fs]
+    got_k = [f.result(timeout=600) for f in fk]
+    t_serve = time.perf_counter() - t0
+    mtr.close()
+    glob, per = mtr.stats(), {h.name: h.stats() for h in (tp, ts, tk)}
+    errs = {"P": rel_err(on_card(got_p), on_card(p_served["sync"][:TENANT_P_REQUESTS])),
+            "K_solve": rel_err(on_card(got_s), on_card(k_served["sync"])),
+            "K_raw": rel_err(on_card(got_k), on_card(kr_want))}
+    order = list(glob["launch_order"])
+    # P (weight 2) against K_raw (weight 1) while both have panels queued:
+    # from the first launch, when both queues are full, to the first of the
+    # two tenants' last launches
+    apply_order = [name for name in order if name != "K_solve"]
+    window = apply_order[:min(len(apply_order) - apply_order[::-1].index(name)
+                              for name in ("P", "K_raw"))]
+    counts = {name: window.count(name) for name in ("P", "K_raw")}
+    rec["tenants"] = {
+        "budget_bytes": budget, "p_store_bytes": p_bytes, "k_store_bytes": k_bytes,
+        "weights": {"P": 2.0, "K_solve": 1.0, "K_raw": 1.0}, "serve_s": t_serve,
+        "onboard_wall_s": t_onboard, "onboard_s": glob["onboard_s"],
+        "rel_err_vs_solo": errs, "launch_order": order, "contended_window_counts": counts,
+        "evictions": glob["evictions"], "reloads": glob["reloads"],
+        "per_tenant": {name: {key: st[key] for key in
+                              ("panels_launched", "spills", "reloads", "reload_s", "nbytes",
+                               "retries", "panel_failures", "fallback_launches")}
+                       for name, st in per.items()}}
+    log(f"[serve tenants] budget {budget} bytes (P {p_bytes} + K {k_bytes} - 1); {t_serve:.3f} s "
+        f"for {len(p_qs)} + {len(targets)} + {len(kr_qs)} requests; K_raw onboarded from raw "
+        f"coordinates in {glob['onboard_s'].get('K_raw', 0.0):.3f} s (device build)")
+    letters = "".join(name[0] if name == "P" else name[2] for name in order)
+    log(f"[serve tenants] launch order {letters} (P, s = K_solve, r = K_raw); contended window "
+        f"{counts}; evictions "
+        f"{glob['evictions']}, reloads {glob['reloads']}; P spills {per['P']['spills']}, "
+        f"reloads {per['P']['reloads']}, last reload_s {per['P']['reload_s']}")
+    log(f"[serve tenants] rel err against the solo servers {errs}")
+    require(all(e <= 1e-5 for e in errs.values()), f"serve tenants: results off their solo "
+            f"servers by {errs}")
+    require(abs(counts["P"] - 2 * counts["K_raw"]) <= 2 and per["K_solve"]["panels_launched"] == 3,
+            f"serve tenants: the launch order {order} does not follow the 2:1 weights")
+    require(per["P"]["spills"] >= 1 and per["P"]["reloads"] >= 1
+            and per["P"]["reload_s"] is not None,
+            f"serve tenants: P's store was not spilled and reloaded: {per['P']}")
+    for name, st in per.items():
+        require_clean(st, f"serve tenants {name}")
+    require(glob["device_store_bytes"] <= budget, "serve tenants: the budget does not hold")
+
+
+def run_serving(pts_p, pts_k, hm_p, hm_k, record) -> None:
+    rec = record.setdefault("serve", {})
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 9)       # the other phases' draws stay as they were
+    p_served = serve_apply_p(pts_p, hm_p, rng, rec)
+    k_served = serve_solve_k(pts_k, hm_k, rec)
+    serve_chaos_k(hm_k, rec)
+    serve_tenants(pts_k, hm_p, hm_k, p_served, k_served, rec)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[serve] phase 9 wall {rec['phase_s']:.1f} s")
+
+
 def main(record: dict) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="012345678",
-                        help="phases to run (default all: 012345678); 0 is always run")
+    parser.add_argument("--phases", default="0123456789",
+                        help="phases to run (default all: 0123456789); 0 is always run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -2031,7 +2356,7 @@ def main(record: dict) -> int:
     rng = np.random.RandomState(SEED)
 
     pts_p = pts_k = hm_p = hm_k = None
-    if set(args.phases) & set("123"):
+    if set(args.phases) & set("1239"):
         pts_p, hm_p, t_p = build_problem_p()
         pts_k, hm_k, t_k = build_problem_k()
         log(f"[build] P {plan_summary(hm_p)} in {t_p:.2f} s")
@@ -2144,7 +2469,6 @@ def main(record: dict) -> int:
         torch.cuda.empty_cache()
         record["P"]["apply_split"] = apply_split(hm_p, rng)
         log_apply_split("P", record["P"]["apply_split"])
-    del hm_p
     torch.cuda.empty_cache()
     if "3" in args.phases:
         _build.reset_launches()
@@ -2155,7 +2479,12 @@ def main(record: dict) -> int:
         record["K"]["apply_split"] = apply_split(hm_k, rng)
         log_apply_split("K", record["K"]["apply_split"])
         allowed = run_problem_k_plain(hm_k, f, c_kern, iters_kern, record)
-    del hm_k
+    if "9" in args.phases:
+        # serving runs here, on the H-matrices of setup, before they are freed
+        _build.reset_launches()
+        run_serving(pts_p, pts_k, hm_p, hm_k, record)
+        count_launches("serve")
+    del hm_p, hm_k
     torch.cuda.empty_cache()
     if set(args.phases) & set("4567"):
         pts_p = points_p() if pts_p is None else pts_p

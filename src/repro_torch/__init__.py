@@ -9,9 +9,12 @@ The main path is the same as the reference's quickstart:
 
 and beside it the memory tier (``build_hmatrix(..., recompress_tol=)``,
 ``core.recompress_store``, ``FactorStore.spill`` / ``reload``), the H-LU
-preconditioner (``make_solver(hm, sigma2, precond="hlu")``, ``harith``) and
-LM serving with H-matrix attention (``python -m repro_torch.launch.serve``;
-``models``, ``serve.step``, ``core.hattention``).
+preconditioner (``make_solver(hm, sigma2, precond="hlu")``, ``harith``), the
+serving runtime (``serve.step.HMatrixServer`` / ``HMatrixSolveServer`` over
+``serve.runtime``, multi-tenant serving in ``serve.tenancy``, fault
+containment in ``serve.faults``) and LM serving with H-matrix attention
+(``python -m repro_torch.launch.serve``; ``models``, ``serve.step``,
+``core.hattention``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no CUDA card they raise ``RuntimeError``.  On a

@@ -29,11 +29,21 @@ factors from ``core.aca`` (expansion-form entries), so the whole H-matrix is
 bit-identical to ``build_hmatrix``'s on any device; the kernel route's
 factors use the kernels' direct-difference entries and are held by
 reconstruction error.
+
+Chaos containment: with a chaos spec (``chaos=`` or the ``REPRO_CHAOS``
+env twin) every stage launch (the plan program, each level group's ACA)
+runs under the serving stack's ``FaultInjector``: raised injected faults
+are retried with backoff, and a NaN-poisoned stage is run once more, the
+same function again, and counted.  ``BuildReport`` carries ``retries``,
+``fallback_launches`` and ``faults_injected``; a tenant onboarded from raw
+coordinates (``serve.tenancy.apply_tenant``) builds under the same envelope
+it serves under.
 """
 from __future__ import annotations
 
+import random
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -46,7 +56,7 @@ from .block_tree import HMatrixPlan
 from .clustering import ClusterTree, _level_bounding_boxes, next_pow2
 from .factor_store import FactorStore, recompress_store
 from .geometry import get_kernel, kernel_name_of
-from .hmatrix import HMatrix, block_groups, compute_factors
+from .hmatrix import HMatrix, block_groups, level_factors
 from .morton import morton_encode as morton_encode_plain
 
 
@@ -137,20 +147,89 @@ def _assemble_plan(meta: np.ndarray, counts: list, c_leaf: int, n_pad: int,
                        n_pad=n_pad, n_levels=n_levels, eta=eta)
 
 
+def _contained_stage(name: str, fn: Callable, chaos_spec, retry, rng, counters: dict,
+                     device: torch.device):
+    """Run ``fn`` as ONE construction launch under the chaos envelope.
+
+    As the serving containment: raised injected faults are retried with
+    exponential backoff up to ``retry.max_attempts``; a NaN-poisoned launch
+    shows on a scalar health token on ``device`` and is answered by running
+    ``fn`` once more, counted in ``fallback_launches``.  The real outputs
+    travel in ``box`` because the poison fills whatever the launch returns.
+    """
+    if chaos_spec is None:
+        return fn()
+    from ..serve.faults import FaultInjector, InjectedFault     # serving layer: lazy
+    injector = FaultInjector(chaos_spec, name)
+    box: dict = {}
+
+    def launch(_panel):
+        box["out"] = fn()
+        return torch.zeros((), device=device)       # health token
+
+    wrapped = injector.wrap(launch)
+    attempts = 0
+    try:
+        while True:
+            attempts += 1
+            try:
+                token = wrapped(None)
+            except InjectedFault:
+                if retry is not None and attempts < retry.max_attempts:
+                    counters["retries"] += 1
+                    time.sleep(retry.delay_s(attempts, rng))
+                    continue
+                raise
+            if not bool(torch.isfinite(token)):
+                counters["fallback_launches"] += 1
+                box["out"] = fn()                   # the one relaunch
+            return box["out"]
+    finally:
+        faults = counters["faults_injected"]
+        for kind, hits in injector.counters.items():
+            if hits:
+                faults[kind] = faults.get(kind, 0) + hits
+
+
+def _fresh_counters() -> dict:
+    return {"retries": 0, "fallback_launches": 0, "faults_injected": {}}
+
+
+def _resolve_containment(chaos):
+    """Chaos spec, retry policy and jitter stream of the build's launches."""
+    from ..serve.faults import RetryPolicy, resolve_chaos      # serving layer: lazy
+    spec = resolve_chaos(chaos)
+    if spec is None:
+        return None, None, None
+    return spec, RetryPolicy(), random.Random(spec.seed)
+
+
 def compute_factors_device(tree: ClusterTree, plan: HMatrixPlan, kernel: str | Callable,
-                           k: int, groups: dict, use_kernels: bool = True) -> dict:
+                           k: int, groups: dict, use_kernels: bool = True, chaos=None,
+                           _counters: dict | None = None) -> dict:
     """One batched ACA launch per admissible level group (paper §5.4.1).
 
     The kernel reads each group's cluster points from the tree-ordered
     ``tree.points`` by cluster id.  ``use_kernels=False`` is
     ``hmatrix.compute_factors``: bit-identical to the host builder's factors.
+    With ``chaos`` each group's launch runs under the chaos envelope.
     """
     kname = kernel_name_of(kernel)
-    if not use_kernels:
-        return compute_factors(tree, plan, get_kernel(kname), k, groups)
-    from ..kernels.batched_aca.ops import batched_aca_level
-    return {level: batched_aca_level(tree.points, groups[level].rows, groups[level].cols,
-                                     level, kname, k)
+    kfn = get_kernel(kname)
+    chaos_spec, retry, rng = _resolve_containment(chaos)
+    counters = _counters if _counters is not None else _fresh_counters()
+    if use_kernels:
+        from ..kernels.batched_aca.ops import batched_aca_level
+
+    def group_factors(level):
+        g = groups[level]
+        if use_kernels:
+            return batched_aca_level(tree.points, g.rows, g.cols, level, kname, k)
+        return level_factors(tree, level, g, kfn, k)
+
+    return {level: _contained_stage(f"build:factors:{level}",
+                                    lambda level=level: group_factors(level),
+                                    chaos_spec, retry, rng, counters, tree.points.device)
             for level in plan.aca_levels}
 
 
@@ -181,6 +260,9 @@ class BuildReport:
     num_aca_blocks: int
     num_dense_blocks: int
     recompress_s: float = 0.0       # build-time recompression pass (``recompress_tol``)
+    retries: int = 0                # chaos containment: injected faults retried,
+    fallback_launches: int = 0      # NaN-poisoned stages run again,
+    faults_injected: dict = field(default_factory=dict)    # and injections by kind
 
 
 def _sync(dev: torch.device) -> None:
@@ -214,11 +296,10 @@ def build_hmatrix_device_report(
     ``core.morton`` and ``core.aca``, the host builder's own functions.
     ``recompress_tol`` truncates the fresh store (``recompress_store``, the
     kernel with ``use_kernels``, else the QR + SVD oracle); its wall time is
-    ``report.recompress_s``.
+    ``report.recompress_s``.  ``chaos`` (``None`` defers to ``REPRO_CHAOS``)
+    runs every stage launch under the chaos envelope; the report counts its
+    retries, relaunches and injected faults.
     """
-    if chaos is not None:
-        raise NotImplementedError("chaos= (fault containment of the build launches) is not "
-                                  "ported yet; it comes with serve/faults.py")
     dev = resolve_device(device)
     require_full_fp32("build_hmatrix_device", dev)
     kname = kernel_name_of(kernel)
@@ -229,11 +310,16 @@ def build_hmatrix_device_report(
     n_pad = max(next_pow2(n), c_leaf)
     n_levels = (n_pad // c_leaf).bit_length() - 1
     launches_before = sum(_build.LAUNCHES.values())
+    chaos_spec, retry, rng = _resolve_containment(chaos)
+    counters = _fresh_counters()
 
     _sync(dev)
     t0 = time.perf_counter()
-    spts, perm, bb_min, bb_max, meta, counts = _plan_program(
-        pts, n_pad=n_pad, n_levels=n_levels, eta=eta, use_kernels=use_kernels)
+    spts, perm, bb_min, bb_max, meta, counts = _contained_stage(
+        "build:plan",
+        lambda: _plan_program(pts, n_pad=n_pad, n_levels=n_levels, eta=eta,
+                              use_kernels=use_kernels),
+        chaos_spec, retry, rng, counters, dev)
     plan = _assemble_plan(meta.cpu().numpy(), counts, c_leaf, n_pad, n_levels, eta)
     tree = ClusterTree(points=spts, perm=perm, n=n, n_pad=n_pad, c_leaf=c_leaf,
                        n_levels=n_levels, bb_min=bb_min, bb_max=bb_max)
@@ -244,7 +330,8 @@ def build_hmatrix_device_report(
     factors = None
     if precompute:
         factors = FactorStore.from_factors(
-            compute_factors_device(tree, plan, kname, k, groups, use_kernels), plan=plan)
+            compute_factors_device(tree, plan, kname, k, groups, use_kernels, chaos=chaos_spec,
+                                   _counters=counters), plan=plan)
     _sync(dev)
     t2 = time.perf_counter()
     recompress_s = 0.0
@@ -259,5 +346,8 @@ def build_hmatrix_device_report(
                          factors_s=t2 - t1, total_s=t2 - t0 + recompress_s,
                          launches=sum(_build.LAUNCHES.values()) - launches_before,
                          num_aca_blocks=plan.num_aca_blocks,
-                         num_dense_blocks=plan.num_dense_blocks, recompress_s=recompress_s)
+                         num_dense_blocks=plan.num_dense_blocks, recompress_s=recompress_s,
+                         retries=counters["retries"],
+                         fallback_launches=counters["fallback_launches"],
+                         faults_injected=counters["faults_injected"])
     return hm, report

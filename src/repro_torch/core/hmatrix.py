@@ -131,16 +131,17 @@ def _cluster_points(points: torch.Tensor, level: int, ids: torch.Tensor) -> torc
     return points.reshape(1 << level, m, -1)[ids]
 
 
+def level_factors(tree: ClusterTree, level: int, g: BlockGroup, kernel: Callable, k: int):
+    """ACA factors ``(U, V)`` of one admissible level group (``core.aca``)."""
+    return batched_aca(_cluster_points(tree.points, level, g.rows),
+                       _cluster_points(tree.points, level, g.cols), kernel, k)
+
+
 def compute_factors(tree: ClusterTree, plan: HMatrixPlan, kernel: Callable, k: int,
                     groups: dict) -> dict:
     """Precompute ACA factors for every admissible level group (P mode)."""
-    factors = {}
-    for level in plan.aca_levels:
-        g = groups[level]
-        factors[level] = batched_aca(_cluster_points(tree.points, level, g.rows),
-                                     _cluster_points(tree.points, level, g.cols),
-                                     kernel, k)
-    return factors
+    return {level: level_factors(tree, level, groups[level], kernel, k)
+            for level in plan.aca_levels}
 
 
 def build_hmatrix(coords, kernel: str | Callable = "gaussian", k: int = 16,

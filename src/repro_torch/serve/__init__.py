@@ -1,1 +1,3 @@
-"""Serving steps of the port: LM prefill and decode (``repro.serve.step``'s LM part)."""
+"""Serving on the port: the H-matrix servers and LM steps (``step``), the async
+panel runtime (``runtime``), multi-tenant serving (``tenancy``) and fault
+containment (``faults``)."""

@@ -133,7 +133,9 @@ def test_eval_dense_leaves_matches_reference():
 
 def test_unported_options_raise():
     pts, c_leaf, eta = _points("single-leaf")
-    with pytest.raises(NotImplementedError, match="chaos"):
+    # chaos= is ported (tests/test_torch_faults.py): a malformed spec is
+    # rejected by the reference's grammar
+    with pytest.raises(ValueError, match="chaos"):
         build_hmatrix_device(pts, c_leaf=c_leaf, chaos="nan:1.0", device="cpu")
     # recompress_tol= is ported: the store comes truncated, with its time
     hm, report = build_hmatrix_device_report(pts, c_leaf=c_leaf, precompute=True,
