@@ -107,9 +107,26 @@ Phases (any failure ends the run with a non-zero exit code):
      P against the K apply tenant at 2:1 in the launch order while both are
      backlogged (every request is queued before the first pick), P's store
      spilled and reloaded (``reload_s``).  Outside the chaos step no
-     retry, panel failure or fallback launch is allowed.
+     retry, panel failure or fallback launch is allowed;
+  m. sharding (run after phase 9, on the H-matrices of setup), over a mesh of
+     four logical shards of card 0 (``make_panel_mesh(devices=("cuda:0",) *
+     4)``; also over every card where there are several): P's P-mode apply
+     column-sharded at R = 8 and 5 and on an (N,) vector, row-sharded at R =
+     8 and 1, and P's NP-mode apply row-sharded at R = 1, each within 1e-5
+     relative of the unsharded kernel apply on the same X; K's
+     column-sharded block-Jacobi solve (R = 8) within 1e-5 and with equal
+     iterations per column of the unsharded solves of the shards' column
+     slices, and against the unsharded solve of the whole panel within 1e-5
+     and equal counts where the bits are equal, else (PyTorch's column sums
+     on the card round by the panel's width) within 1e-3 and fault 3's
+     max(2, spread + 1); ``HMatrixServer(K, max_batch=6)`` (row shards) on
+     11 requests within rtol 1e-4 / atol 1e-5 of the unsharded apply and
+     ``HMatrixSolveServer(K, max_batch=3)`` (width 4) on 6 targets within
+     rtol 1e-2 / atol 1e-4 of the unsharded solve; every call twice
+     bit-identical; sharded and unsharded times side by side, the servers'
+     beside unsharded servers on the same requests.
 
-Kernel launch counts are set to 0 before each of phases 2 to 9 and read
+Kernel launch counts are set to 0 before each of phases 2 to 9 and m and read
 after it: each phase must have launched the kernels of its own path
 (``PATH_KERNELS``), and every kernel must have run on the main path.
 Kernel, plain and library times are device times: CUDA events around calls
@@ -125,6 +142,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import itertools
 import json
 import math
@@ -199,6 +217,8 @@ PATH_KERNELS = {
     "lm_serve": ("hattention_nearfield",),
     "serve": ("batched_kernel_matmat", "batched_lowrank_matmat", "batched_block_cholesky",
               "batched_block_cholesky_solve"),
+    "mesh": ("batched_kernel_matmat", "batched_kernel_matvec", "batched_lowrank_matmat",
+             "batched_aca", "batched_block_cholesky", "batched_block_cholesky_solve"),
 }
 P_BUILD = dict(kernel="gaussian", k=16, c_leaf=2048, eta=1.5)
 K_BUILD = dict(kernel="gaussian", k=16, c_leaf=256, eta=1.5)
@@ -2326,10 +2346,209 @@ def run_serving(pts_p, pts_k, hm_p, hm_k, record) -> None:
     log(f"[serve] phase 9 wall {rec['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase m: the sharded apply, solve and servers over a mesh
+# ---------------------------------------------------------------------------
+
+MESH_TOL = 1e-5                 # sharded against unsharded, relative (tests/test_shard.py)
+# two converged K solves whose bits differ (phase 3: kernel against plain path)
+K_OTHER_BITS_TOL = 1e-3
+
+
+def mesh_meshes() -> list:
+    """Four logical shards of card 0, and every visible card where there are
+    several: (label, mesh)."""
+    from repro_torch.parallel import make_panel_mesh
+    meshes = [("4 x cuda:0", make_panel_mesh(devices=("cuda:0",) * 4))]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"cuda:0..{torch.cuda.device_count() - 1}", make_panel_mesh()))
+    return meshes
+
+
+def mesh_apply_check(name: str, sharded, plain, x, rec) -> None:
+    """One sharded apply against the unsharded one on the same X: relative
+    error, two calls bit-identical, both timed back to back."""
+    z, z_plain = sharded(x), plain(x)
+    err = rel_err(z, z_plain)
+    identical = bool(torch.equal(z, sharded(x)))
+    ms, plain_ms = stream_ms(lambda: sharded(x), 2), stream_ms(lambda: plain(x), 2)
+    rec[name] = {"rel_err": err, "bit_identical_run_to_run": identical,
+                 "equal_to_unsharded_bits": bool(torch.equal(z, z_plain)), "sharded_ms": ms,
+                 "unsharded_ms": plain_ms}
+    log(f"[mesh] {name}: rel err {err:.3e} against the unsharded apply (bits equal "
+        f"{rec[name]['equal_to_unsharded_bits']}); sharded {ms:.3f} ms, unsharded "
+        f"{plain_ms:.3f} ms (stream_ms); two calls bit-identical {identical}")
+    require(err < MESH_TOL, f"mesh {name}: rel err {err} against the unsharded apply")
+    require(identical, f"mesh {name}: two sharded applies are not bit-identical")
+
+
+def mesh_solve_k(pts_k, hm_k, mesh, rec) -> None:
+    """K's column-sharded block-Jacobi solve (R = 8).
+
+    Against the unsharded kernel solves of the shards' own column slices:
+    the same bits, within 1e-5 and with the same iterations per column (each
+    column's arithmetic is the single-device solver's).  Against the
+    unsharded solve of the whole panel: PyTorch's column sums on the card
+    round by the panel's width, so the bits may differ; then the iterations
+    per column are held to fault 3's max(2, spread + 1) of the unsharded
+    solve's F * (1 +- 1e-7) spread and the solution to phase 3's 1e-3 for
+    two converged K solves of other bits (beside the distance the 1e-7
+    change of F alone moves it), else to equal counts and 1e-5."""
+    from repro_torch.core import sinusoid_targets
+    from repro_torch.solve import make_solver
+    f = sinusoid_targets(pts_k, 8, 32.0)
+    kw = dict(tol=1e-3, max_iter=300)
+    solver = make_solver(hm_k, K_SIGMA2, **kw)
+    sharded = make_solver(hm_k, K_SIGMA2, mesh=mesh, **kw)
+    (c0, info0), t0 = wall_s(lambda: solver(f))
+    (c1, info1), t1 = wall_s(lambda: sharded(f))
+    (c2, info2), t2 = wall_s(lambda: sharded(f))
+    t0b = wall_s(lambda: solver(f))[1]
+    it0, it1 = info0.iters_per_column.tolist(), info1.iters_per_column.tolist()
+    width = f.shape[1] // len(mesh.devices)
+    slices = [solver(f[:, j:j + width]) for j in range(0, f.shape[1], width)]
+    c_w = torch.cat([c for c, _ in slices], dim=1)
+    it_w = [it for _, info in slices for it in info.iters_per_column.tolist()]
+    err, err_w = rel_err(c1, c0), rel_err(c1, c_w)
+    same_bits, same_bits_w = bool(torch.equal(c1, c0)), bool(torch.equal(c1, c_w))
+    identical = bool(torch.equal(c1, c2)) and info2.iters_per_column.tolist() == it1
+    pert_err = None
+    if same_bits:
+        allowed, tol_r8 = [0] * len(it0), MESH_TOL
+        held = "equal bits: equal counts, rel err < 1e-5"
+    else:
+        perturbed = [(eps, solver(f * (1.0 + eps))) for eps in (1e-7, -1e-7)]
+        spread = [max(col) - min(col) for col in
+                  zip(it0, *[info.iters_per_column.tolist() for _, (_, info) in perturbed])]
+        pert_err = max(rel_err(c / (1.0 + eps), c0) for eps, (c, _) in perturbed)
+        allowed, tol_r8 = [max(2, sp + 1) for sp in spread], K_OTHER_BITS_TOL
+        held = "other bits: max(2, spread + 1), rel err <= 1e-3"
+    rec["K_solve"] = {"rel_err": err, "equal_to_unsharded_bits": same_bits,
+                      "bit_identical_run_to_run": identical, "iters_unsharded": it0,
+                      "iters_sharded": it1, "iterations_sharded": info1.iterations,
+                      "iters_allowed_difference": allowed, "which_held": held,
+                      "shard_width_rel_err": err_w, "shard_width_equal_bits": same_bits_w,
+                      "shard_width_iters": it_w, "rel_err_of_f_times_1_pm_1e-7": pert_err,
+                      "sharded_s": [t1, t2], "unsharded_s": [t0, t0b]}
+    log(f"[mesh] K solve R=8: rel err {err:.3e} against the unsharded kernel solve; "
+        f"iterations {it1} (unsharded {it0}; {held}: allowed {allowed}); sharded {t1:.3f} / "
+        f"{t2:.3f} s, unsharded {t0:.3f} / {t0b:.3f} s (wall_s); two calls bit-identical "
+        f"{identical}")
+    log(f"[mesh] K solve R=8 against the unsharded solves of the shards' {width}-column "
+        f"slices: rel err {err_w:.3e}, bits equal {same_bits_w}, iterations {it_w}; the "
+        f"unsharded solve moved by {pert_err} when F changed by 1e-7")
+    require(info1.converged, "mesh K solve: not every column converged")
+    require(info1.iterations == max(it1), "mesh K solve: iterations != iters_per_column.max()")
+    require(err < tol_r8, f"mesh K solve: rel err {err} against the unsharded solve ({held})")
+    require(all(abs(a - b) <= lim for a, b, lim in zip(it1, it0, allowed)),
+            f"mesh K solve: iterations {it1} against {it0} beyond {allowed} ({held})")
+    require(err_w < MESH_TOL and it_w == it1,
+            f"mesh K solve: rel err {err_w}, iterations {it1} against the shards' slices "
+            f"solved unsharded ({it_w})")
+    require(identical, "mesh K solve: two sharded solves are not bit-identical")
+
+
+def mesh_servers_k(pts_k, hm_k, mesh, rec) -> None:
+    """The meshed servers on K: the apply server's row shards at its own
+    width, the solve server's width rounded up to the shard count; results
+    against the unsharded executors, two serves bit-identical, serve times
+    beside unsharded servers' on the same requests."""
+    from repro_torch.core import make_apply, sinusoid_targets
+    from repro_torch.serve.step import HMatrixServer, HMatrixSolveServer
+    from repro_torch.solve import make_solver
+    qs = host_requests(hm_k.tree.n, 11, SEED + 4)
+    with HMatrixServer(hm_k, max_batch=6, mesh=mesh) as srv:
+        require(srv.max_batch == 6, f"mesh server: max_batch {srv.max_batch}, not 6")
+        outs, t_serve = wall_s(lambda: srv.serve(qs))
+        again, t_again = wall_s(lambda: srv.serve(qs))
+        widths = srv.widths
+    with HMatrixServer(hm_k, max_batch=6) as plain_srv:
+        t_plain = [wall_s(lambda: plain_srv.serve(qs))[1] for _ in range(2)]
+    want = make_apply(hm_k)(on_card(qs))
+    got = on_card(outs)
+    apply_ok = bool(torch.allclose(got, want, rtol=1e-4, atol=1e-5))
+    apply_err = rel_err(got, want)
+    f = sinusoid_targets(pts_k, 6, 32.0)
+    targets = list(f.t().contiguous().cpu().numpy())
+    with HMatrixSolveServer(hm_k, K_SIGMA2, tol=1e-3, max_iter=300, max_batch=3,
+                            mesh=mesh) as ssrv:
+        require(ssrv.max_batch == 4, f"mesh solve server: max_batch {ssrv.max_batch}, not 4")
+        souts, t_solve = wall_s(lambda: ssrv.serve(targets))
+        iters = [info.iters_per_column.tolist() for info in ssrv.last_info]
+        sagain, t_solve_again = wall_s(lambda: ssrv.serve(targets))
+    with HMatrixSolveServer(hm_k, K_SIGMA2, tol=1e-3, max_iter=300, max_batch=3) as plain_ssrv:
+        t_solve_plain = [wall_s(lambda: plain_ssrv.serve(targets))[1] for _ in range(2)]
+    # each target alone through the unsharded solver, as tests/test_shard.py
+    # holds them: a shard of the width-4 panel is one column too
+    solver = make_solver(hm_k, K_SIGMA2, tol=1e-3, max_iter=300)
+    c_want = torch.stack([solver(f[:, j])[0] for j in range(f.shape[1])], dim=1)
+    solve_ok = bool(torch.allclose(on_card(souts), c_want, rtol=1e-2, atol=1e-4))
+    solve_err = rel_err(on_card(souts), c_want)
+    identical = bit_identical(outs, again) and bit_identical(souts, sagain)
+    rec["servers"] = {"apply_widths": list(widths), "apply_rel_err": apply_err,
+                      "apply_within_rtol_1e-4_atol_1e-5": apply_ok,
+                      "apply_serve_s": [t_serve, t_again], "apply_serve_unsharded_s": t_plain,
+                      "solve_rel_err": solve_err, "solve_within_rtol_1e-2_atol_1e-4": solve_ok,
+                      "solve_iters_per_panel": iters, "solve_serve_s": [t_solve, t_solve_again],
+                      "solve_serve_unsharded_s": t_solve_plain,
+                      "bit_identical_run_to_run": identical}
+    log(f"[mesh] HMatrixServer(K, max_batch=6, row shards), 11 requests, widths {widths}: rel "
+        f"err {apply_err:.3e}, within rtol 1e-4 / atol 1e-5 {apply_ok}; serve {t_serve:.4f} / "
+        f"{t_again:.4f} s, unsharded server {t_plain[0]:.4f} / {t_plain[1]:.4f} s (wall_s)")
+    log(f"[mesh] HMatrixSolveServer(K, max_batch=3 -> 4), 6 targets: rel err {solve_err:.3e}, "
+        f"within rtol 1e-2 / atol 1e-4 {solve_ok}; iterations per panel {iters}; serve "
+        f"{t_solve:.3f} / {t_solve_again:.3f} s, unsharded server (width 3) "
+        f"{t_solve_plain[0]:.3f} / {t_solve_plain[1]:.3f} s (wall_s); two serves "
+        f"bit-identical {identical}")
+    require(apply_ok, f"mesh server: results off the unsharded apply by {apply_err}")
+    require(solve_ok, f"mesh solve server: results off the unsharded solve by {solve_err}")
+    require(identical, "mesh servers: two serves are not bit-identical")
+
+
+def run_mesh(pts_k, hm_p, hm_k, record) -> None:
+    """Phase m: P's applies (P mode by columns at R = 8, 5 and the vector,
+    by rows at R = 8 and 1, NP mode by rows at R = 1), K's column-sharded solve and the meshed
+    servers on K, over four logical shards of card 0 (and over every card
+    where there are several)."""
+    from repro_torch.core import make_apply
+    from repro_torch.parallel import make_sharded_apply
+    t_phase = time.perf_counter()
+    # phase 9's memory tier may leave a store spilled; a sharded executor
+    # captures the store when it is made, and refuses a spilled one
+    reloaded = {name: hm.factors.reload() for name, hm in (("P", hm_p), ("K", hm_k))}
+    gen = np.random.RandomState(SEED + 21)
+    hm_np = dataclasses.replace(hm_p, factors=None)         # the same plan, NP mode
+    plain_p, plain_np = make_apply(hm_p), make_apply(hm_np)
+    out = record.setdefault("mesh", {})
+    out["stores_reloaded_bytes"] = reloaded
+    log(f"[mesh] factor bytes reloaded after phase 9 {reloaded}")
+    for label, mesh in mesh_meshes():
+        rec = out.setdefault(label, {"devices": [str(d) for d in mesh.devices]})
+        log(f"[mesh] mesh {label}: {len(mesh.devices)} shards on {rec['devices']}")
+        cols = make_sharded_apply(hm_p, mesh, shard="columns")
+        rows = make_sharded_apply(hm_p, mesh, shard="rows")
+        for r in (8, 5):
+            x = randn((hm_p.tree.n, r), gen)
+            mesh_apply_check(f"P columns R={r}", cols, plain_p, x, rec)
+            if r == 8:
+                mesh_apply_check("P rows R=8", rows, plain_p, x, rec)
+        x1 = randn((hm_p.tree.n, 1), gen)
+        mesh_apply_check("P columns vector", cols, plain_p, x1[:, 0].contiguous(), rec)
+        mesh_apply_check("P rows R=1", rows, plain_p, x1, rec)
+        mesh_apply_check("P NP rows R=1", make_sharded_apply(hm_np, mesh, shard="rows"),
+                         plain_np, x1, rec)
+        del cols, rows
+        torch.cuda.empty_cache()
+        mesh_solve_k(pts_k, hm_k, mesh, rec)
+        mesh_servers_k(pts_k, hm_k, mesh, rec)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase m wall {out['phase_s']:.1f} s")
+
+
 def main(record: dict) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="0123456789",
-                        help="phases to run (default all: 0123456789); 0 is always run")
+    parser.add_argument("--phases", default="0123456789m",
+                        help="phases to run (default all: 0123456789m); 0 is always run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -2356,7 +2575,7 @@ def main(record: dict) -> int:
     rng = np.random.RandomState(SEED)
 
     pts_p = pts_k = hm_p = hm_k = None
-    if set(args.phases) & set("1239"):
+    if set(args.phases) & set("1239m"):
         pts_p, hm_p, t_p = build_problem_p()
         pts_k, hm_k, t_k = build_problem_k()
         log(f"[build] P {plan_summary(hm_p)} in {t_p:.2f} s")
@@ -2484,6 +2703,12 @@ def main(record: dict) -> int:
         _build.reset_launches()
         run_serving(pts_p, pts_k, hm_p, hm_k, record)
         count_launches("serve")
+    if "m" in args.phases:
+        # the sharded executors, on the H-matrices of setup too
+        torch.cuda.empty_cache()
+        _build.reset_launches()
+        run_mesh(pts_k, hm_p, hm_k, record)
+        count_launches("mesh")
     del hm_p, hm_k
     torch.cuda.empty_cache()
     if set(args.phases) & set("4567"):

@@ -1,17 +1,22 @@
 """Adaptive cross approximation (paper §2.4, Algorithm 2), fixed-rank form.
 
-Port of ``repro.core.aca.batched_aca``: ``k`` pivoted rank-1 steps per
+Port of ``repro.core.aca``.  ``batched_aca``: ``k`` pivoted rank-1 steps per
 block, all blocks of one level group at once (the reference's ``vmap``
 becomes the leading batch dimension).  Row pivots are the argmax of the
 masked residual column, column pivots the argmax of the masked residual
 row, the first index winning ties; a pivot of magnitude <= 1e-30 yields
 zero columns.  Entries come from the kernel function with the
 expansion-form distances, as in the reference.
+
+``aca_fixed_rank`` is the same on one block; ``aca_adaptive`` is
+Algorithm 2 with its Frobenius stopping criterion on an explicit matrix, a
+float64 host loop for convergence studies and tests.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 
@@ -64,3 +69,64 @@ def batched_aca(row_pts: torch.Tensor, col_pts: torch.Tensor,
         piv_cols[:, r] = j_r
         j_r = _masked_argmax(v_r, col_mask)
     return (U, V, piv_rows, piv_cols) if return_pivots else (U, V)
+
+
+def aca_fixed_rank(row_pts: torch.Tensor, col_pts: torch.Tensor, kernel: Callable, k: int):
+    """Rank-``k`` cross approximation of ``A[i, j] = kernel(row_pts[i], col_pts[j])``.
+
+    row_pts: (m, d), col_pts: (n, d) -> U: (m, k), V: (n, k) with
+    ``A ~= U @ V.T``.  Degenerate pivots (the block has rank < k) yield zero
+    columns, so ``U V^T`` stays exact then.
+    """
+    u, v = batched_aca(row_pts[None], col_pts[None], kernel, k)
+    return u[0], v[0]
+
+
+def aca_adaptive(a, eps: float, k_max: int, eta: float = 0.0):
+    """Algorithm 2 verbatim, with its stopping criterion, on an explicit matrix.
+
+    A float64 host loop (reference and benchmark use).  Stops when the new
+    rank-1 term is small against the approximation so far (``eps``,
+    ``eta``), when a pivot vanishes, or when every row or column pivot is
+    consumed, so the rank never exceeds ``min(m, n)``.  Returns ``(U, V,
+    rank)``: float64 CPU tensors of shape (m, rank) and (n, rank).
+    """
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    a = np.asarray(a, np.float64)
+    m, n = a.shape
+    U = np.zeros((m, k_max))
+    V = np.zeros((n, k_max))
+    row_mask = np.ones(m, bool)
+    col_mask = np.ones(n, bool)
+    j_r = 0
+    frob_sq = 0.0
+    rank = k_max
+    for r in range(k_max):
+        u_hat = a[:, j_r] - U[:, :r] @ V[j_r, :r]
+        i_r = int(np.argmax(np.where(row_mask, np.abs(u_hat), -1.0)))
+        alpha = u_hat[i_r]
+        if abs(alpha) < 1e-300:
+            rank = r
+            break
+        u_r = u_hat / alpha
+        v_r = a[i_r, :] - V[:, :r] @ U[i_r, :r]
+        U[:, r] = u_r
+        V[:, r] = v_r
+        row_mask[i_r] = False
+        col_mask[j_r] = False
+        # ||sum_l u_l v_l^T||_F^2, updated (the criterion's right-hand side)
+        frob_sq += (u_r @ u_r) * (v_r @ v_r)
+        for l in range(r):
+            frob_sq += 2.0 * (U[:, l] @ u_r) * (V[:, l] @ v_r)
+        nu, nv = np.linalg.norm(u_r), np.linalg.norm(v_r)
+        if nu * nv <= eps * (1.0 - eta) / (1.0 + eps) * np.sqrt(max(frob_sq, 0.0)):
+            rank = r + 1
+            break
+        if not (row_mask.any() and col_mask.any()):
+            # every row or column pivot is consumed: the cross is complete; a
+            # stale j_r would cross a consumed column whose residual is noise
+            rank = r + 1
+            break
+        j_r = int(np.argmax(np.where(col_mask, np.abs(v_r), -1.0)))
+    return torch.from_numpy(U[:, :rank].copy()), torch.from_numpy(V[:, :rank].copy()), rank

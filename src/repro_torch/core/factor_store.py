@@ -34,6 +34,26 @@ def effective_ranks(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.where(has, last, torch.zeros_like(last)).to(torch.int32)
 
 
+def pad_adaptive(u, v, rank: int, k_pad: int):
+    """Zero-pad one adaptive-rank block ``(m, r), (n, r)`` to pad width ``k_pad``.
+
+    ``aca_adaptive`` clamps the rank it returns; the batched fixed-rank path
+    pads every block to ``k_pad``.  This is the bridge between the two: the
+    padded columns are exactly zero, so the store's rank table
+    (``effective_ranks``) lands back on the clamped ``rank``.  Returns
+    tensors of the inputs' dtype.
+    """
+    u = torch.as_tensor(u)[:, :rank]
+    v = torch.as_tensor(v)[:, :rank]
+    if rank > k_pad:
+        raise ValueError(f"adaptive rank {rank} exceeds pad width {k_pad}")
+    pu = u.new_zeros((u.shape[0], k_pad))
+    pv = v.new_zeros((v.shape[0], k_pad))
+    pu[:, :rank] = u
+    pv[:, :rank] = v
+    return pu, pv
+
+
 class FactorStore:
     """Packed, level-grouped factor storage with rank tables and byte
     accounting; mapping-compatible with a ``{level: (U, V)}`` dict."""

@@ -286,18 +286,50 @@ def apply_in_tree_order(tree: ClusterTree, plan: HMatrixPlan, kernel: Callable, 
                                use_kernels)
 
 
-def make_apply(hm: HMatrix, use_kernels: bool = True, mesh=None) -> Callable:
+def operand(x, hm: HMatrix, what: str = "operand") -> torch.Tensor:
+    """``x`` as a float32 tensor on ``hm.device``, checked to be ``(N,)`` or
+    ``(N, R)``: the explicit check the reference keeps (jnp gathers clamp)."""
+    x = as_f32(x, hm.device)
+    n = hm.tree.n
+    if x.ndim not in (1, 2) or x.shape[0] != n:
+        raise ValueError(f"{what} shape {tuple(x.shape)} incompatible with "
+                         f"H-matrix of size ({n}, {n})")
+    return x
+
+
+def panel_entry(hm: HMatrix, run: Callable) -> Callable:
+    """``apply(x)`` around ``run(x2)``, which maps an ``(N, R)`` panel with
+    R >= 1 to ``H x2``: the operand checks, the vector contract (an ``(N,)``
+    operand runs as one column) and the empty panel."""
+
+    def apply(x) -> torch.Tensor:
+        require_full_fp32("apply", hm.device)
+        x = operand(x, hm)
+        if x.ndim == 1:
+            return run(x[:, None])[:, 0]
+        if x.shape[1] == 0:
+            return torch.zeros_like(x)
+        return run(x)
+
+    return apply
+
+
+def make_apply(hm: HMatrix, use_kernels: bool = True, mesh=None,
+               shard: str = "rows") -> Callable:
     """``apply(x) -> Z = H x`` for ``x: (N,)`` or ``(N, R)`` in the ORIGINAL
     point order; the result has the same shape and lies on ``hm.device``.
 
     ``use_kernels`` routes the two hot loops through the kernel wrappers
     (CUDA kernels for CUDA tensors, their plain versions on the CPU);
     ``False`` calls the plain versions on any device: the same function,
-    summed in another order (the plain path).
+    summed in another order (the plain path).  With a ``mesh``
+    (``repro_torch.parallel.make_panel_mesh``) the work is sharded over it,
+    by blocks (``shard="rows"``, the default) or by panel columns
+    (``"columns"``; see ``repro_torch.parallel.hshard``).
     """
     if mesh is not None:
-        raise NotImplementedError("mesh= (multi-GPU apply) is not ported yet; it comes "
-                                  "with the multi-GPU slice of the port")
+        from ..parallel.hshard import make_sharded_apply
+        return make_sharded_apply(hm, mesh, shard=shard, use_kernels=use_kernels)
     tree, plan = hm.tree, hm.plan
 
     def _apply(x2: torch.Tensor) -> torch.Tensor:
@@ -306,20 +338,7 @@ def make_apply(hm: HMatrix, use_kernels: bool = True, mesh=None) -> Callable:
                                     tree.points, hm.factors, hm.groups, x_pad)
         return permute_from_tree(tree, z_pad)
 
-    def apply(x) -> torch.Tensor:
-        require_full_fp32("apply", hm.device)
-        x = as_f32(x, hm.device)
-        if x.ndim not in (1, 2) or x.shape[0] != tree.n:
-            # explicit check, as the reference keeps it (jnp gathers clamp)
-            raise ValueError(f"operand shape {tuple(x.shape)} incompatible with "
-                             f"H-matrix of size ({tree.n}, {tree.n})")
-        if x.ndim == 1:
-            return _apply(x[:, None])[:, 0]
-        if x.shape[1] == 0:
-            return torch.zeros_like(x)
-        return _apply(x)
-
-    return apply
+    return panel_entry(hm, _apply)
 
 
 def make_matvec(hm: HMatrix, use_kernels: bool = True) -> Callable:

@@ -54,17 +54,12 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..parallel.hshard import pad_panel_width
 from .faults import (CircuitOpenError, FaultInjector, LaneResilience, NaNGuard, OverloadedError,
                      ResiliencePolicy, resolve_chaos)
 
 # width fractions of the full panel launched for partial flushes
 _BUCKET_FRACTIONS = (4, 2, 1)
-
-
-def pad_panel_width(r: int, n_dev: int) -> int:
-    """Smallest panel width >= max(r, 1) divisible by ``n_dev``."""
-    r = max(int(r), 1)
-    return ((r + n_dev - 1) // n_dev) * n_dev
 
 
 def panel_width_buckets(max_batch: int, n_dev: int = 1) -> tuple:
@@ -330,19 +325,27 @@ class LaunchPacer:
 
         Arrivals keep queueing meanwhile, so the next panel packs wider under
         load.  Retirement calls the launch's ``on_retire(seconds, ok)`` with
-        its run time (``Completion.seconds``); an error surfaced by the
+        its run time (``Completion.seconds``).  An error surfaced by the
         synchronize (a device fault) is contained here and reaches the
-        panel's awaiters at their fetch.
+        panel's awaiters at their fetch; one raised by ``seconds`` or
+        ``on_retire`` (accounting) is contained too.
         """
         while len(self._inflight) >= self.max_inflight:
             done, t_commit, on_retire = self._inflight.pop(0)
             ok = True
             try:
                 done.synchronize()
-            except RuntimeError:
+            except Exception:
+                # the panel's awaiters meet the same error at their fetch; it
+                # must not end the scheduler thread (its pending requests
+                # would strand and close() would wait forever)
                 ok = False
-            if on_retire is not None:
+            if on_retire is None:
+                continue
+            try:
                 on_retire(done.seconds() if ok else time.monotonic() - t_commit, ok)
+            except Exception:
+                pass                # accounting must not kill the scheduler
 
     def commit(self, done, on_retire=None):
         """Record one freshly enqueued launch (scheduler thread only)."""
@@ -368,12 +371,12 @@ class PanelLane:
     byte accounting and memory tier.
     """
 
-    def __init__(self, n: int, max_batch: int, launch: Callable, slots: int = 2,
-                 injector=None, guard_outputs: bool = False,
+    def __init__(self, n: int, max_batch: int, launch: Callable, n_dev: int = 1,
+                 slots: int = 2, injector=None, guard_outputs: bool = False,
                  on_relaunch: Callable | None = None, store=None, device=None):
         self.n = int(n)
         self.max_batch = int(max_batch)
-        self.widths = panel_width_buckets(self.max_batch)
+        self.widths = panel_width_buckets(self.max_batch, n_dev)
         self.device = resolve_device(device)
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.injector = injector
@@ -464,13 +467,16 @@ class PanelRuntime:
     n : int
         Request vector length (the H-matrix size).
     max_batch : int
-        Full panel width.
+        Full panel width; a multiple of ``n_dev``.
     launch : Callable
         ``launch(panel)`` takes an ``(n, w)`` float32 panel on ``device``
         (``w`` one of ``self.widths``) and returns the ``(n, w)`` result on
         it, enqueued on the current stream.  A host sync inside it (as the
         PCG's per-iteration ``active.any()``) holds the scheduler thread for
         its duration.
+    n_dev : int, optional
+        Shard count of a meshed launch: every width bucket is a multiple of
+        it, so that every shard is full.
     deadline_s : float, optional
         Flush a partial panel once its oldest request has waited this long;
         ``None``: partial panels launch only on flush / drain / close.
@@ -502,7 +508,7 @@ class PanelRuntime:
     trace of ``(t, kind, detail)``); call it for a snapshot.
     """
 
-    def __init__(self, n: int, max_batch: int, launch: Callable,
+    def __init__(self, n: int, max_batch: int, launch: Callable, n_dev: int = 1,
                  deadline_s: float | None = None, max_queue: int | None = None,
                  max_inflight: int = 2, chaos=None, resilience: ResiliencePolicy | None = None,
                  shed_above: int | None = None, store=None, device=None):
@@ -518,9 +524,9 @@ class PanelRuntime:
         self._pacer = LaunchPacer(max_inflight)
         injector = FaultInjector(chaos_spec, "panel") if chaos_spec is not None else None
         guard = resilience is not None and resilience.validate_outputs
-        self._lane = PanelLane(n, max_batch, launch, slots=max_inflight, injector=injector,
-                               guard_outputs=guard, on_relaunch=self._count_relaunch,
-                               store=store, device=device)
+        self._lane = PanelLane(n, max_batch, launch, n_dev=n_dev, slots=max_inflight,
+                               injector=injector, guard_outputs=guard,
+                               on_relaunch=self._count_relaunch, store=store, device=device)
         self.n = self._lane.n
         self.max_batch = self._lane.max_batch
         self.widths = self._lane.widths

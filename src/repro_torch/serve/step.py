@@ -25,8 +25,11 @@ and offers both modes over the same launch:
 
 Both modes pack the same width-bucketed panels as request rows, upload and
 transpose them on the device and fetch the same way, so their results are
-bit-identical.  ``mesh=`` (panels sharded over several GPUs) raises
-``NotImplementedError``, as ``make_apply`` does.
+bit-identical.  With a ``mesh`` (``repro_torch.parallel.make_panel_mesh``)
+each panel is sharded over it (``repro_torch.parallel.hshard``): the apply
+server's by blocks (row shards take any width), the solve server's by
+columns, its panel width rounded up to a multiple of the mesh's shard
+count so that every shard is full.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import torch
 from .._device import resolve_device
 from ..core.hmatrix import HMatrix, make_apply
 from ..models import lm
+from ..parallel.hshard import mesh_panel
 from ..solve import make_solver
 from .runtime import (PanelRuntime, as_vector, fetch_rows, pack_rows, staging_buffer,
                       upload_rows, width_for)
@@ -84,9 +88,10 @@ class _PanelServerBase:
     """
 
     def _init_runtime(self, device, deadline_s, max_queue, chaos=None, resilience=None,
-                      shed_above=None):
+                      shed_above=None, n_dev=1):
         self.device = device
-        self.runtime = PanelRuntime(self.n, self.max_batch, self._launch,
+        self.n_dev = n_dev
+        self.runtime = PanelRuntime(self.n, self.max_batch, self._launch, n_dev=n_dev,
                                     deadline_s=deadline_s, max_queue=max_queue, chaos=chaos,
                                     resilience=resilience, shed_above=shed_above,
                                     device=device)
@@ -110,8 +115,8 @@ class _PanelServerBase:
         if max_queue is None:
             max_queue = self.runtime.max_queue
         return TenantSpec(n=self.n, max_batch=self.max_batch, launch=self._launch,
-                          weight=weight, deadline_s=deadline_s, max_queue=max_queue,
-                          device=self.device, **spec_kw)
+                          n_dev=self.n_dev, weight=weight, deadline_s=deadline_s,
+                          max_queue=max_queue, device=self.device, **spec_kw)
 
     @property
     def widths(self) -> tuple:
@@ -169,8 +174,10 @@ class HMatrixServer(_PanelServerBase):
     use_kernels : bool, optional
         Route the apply through the kernel wrappers (the CUDA kernels for
         CUDA tensors, their plain versions on the CPU).
-    mesh : optional
-        Not ported: raises ``NotImplementedError``.
+    mesh : PanelMesh, optional
+        Shard each panel's blocks over this mesh (``make_apply(mesh=)``, row
+        shards: each shard evaluates a share of the blocks, and the partial
+        results are summed in shard order).
     deadline_s, max_queue
         Async mode: flush a partial panel once its oldest request has waited
         this long; backpressure cap on queued requests.
@@ -251,11 +258,13 @@ class HMatrixSolveServer(_PanelServerBase):
     sigma2 : float
         Regularization shift.
     max_batch : int, optional
-        Panel width.
+        Panel width; with a ``mesh`` rounded up to a multiple of its shard
+        count (``self.max_batch`` is the width used).
     tol, max_iter, precondition, use_kernels
         Passed to :func:`repro_torch.solve.make_solver`.
-    mesh : optional
-        Not ported: raises ``NotImplementedError``.
+    mesh : PanelMesh, optional
+        Shard each panel's columns over this mesh; the shards' PCGs step in
+        lockstep (``make_solver(mesh=)``).
     deadline_s, max_queue, chaos, resilience, shed_above
         As :class:`HMatrixServer`.  A panel that the NaN/Inf guard relaunches
         appends a second record to ``last_info``.
@@ -268,7 +277,7 @@ class HMatrixSolveServer(_PanelServerBase):
                  mesh=None, deadline_s: float | None = None, max_queue: int | None = None,
                  chaos=None, resilience=None, shed_above: int | None = None):
         self.n = hm.shape[0]
-        self.max_batch = int(max_batch)
+        self.max_batch, n_dev = mesh_panel(max_batch, mesh)
         self.last_info = deque(maxlen=self.LAST_INFO_MAX)
         self._solve = make_solver(hm, sigma2, tol=tol, max_iter=max_iter,
                                   precondition=precondition, use_kernels=use_kernels, mesh=mesh)
@@ -280,7 +289,7 @@ class HMatrixSolveServer(_PanelServerBase):
 
         self._launch = launch
         self._init_runtime(hm.device, deadline_s, max_queue, chaos=chaos,
-                           resilience=resilience, shed_above=shed_above)
+                           resilience=resilience, shed_above=shed_above, n_dev=n_dev)
 
     def serve(self, targets) -> list:
         """Solve for a batch of targets (original point order), in panels.

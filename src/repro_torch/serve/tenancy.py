@@ -41,6 +41,7 @@ from typing import Callable
 import torch
 
 from ..core.factor_store import FactorStore
+from ..parallel.hshard import mesh_panel
 from .faults import (CircuitOpenError, FaultInjector, LaneResilience, OverloadedError,
                      ResiliencePolicy, StragglerMonitor, resolve_chaos)
 from .runtime import LaunchPacer, PanelFuture, PanelLane, _Stats, validate_request
@@ -50,8 +51,12 @@ from .runtime import LaunchPacer, PanelFuture, PanelLane, _Stats, validate_reque
 class TenantSpec:
     """Everything the runtime needs to host one launch target.
 
-    n, max_batch:   request length and full panel width.
+    n, max_batch:   request length and full panel width (a multiple of
+                    ``n_dev``: :func:`solve_tenant` and a solve server's
+                    ``tenant_spec()`` round it).
     launch:         ``(n, w) -> (n, w)`` on ``device``, as ``PanelRuntime``'s.
+    n_dev:          shard count of a column-sharded launch (a meshed solve);
+                    every width bucket is a multiple of it.
     weight:         fair-share weight (> 0).
     deadline_s, max_queue, shed_above: per-tenant deadline flush,
                     backpressure cap and load-shedding budget.
@@ -68,6 +73,7 @@ class TenantSpec:
     n: int
     max_batch: int
     launch: Callable
+    n_dev: int = 1
     weight: float = 1.0
     deadline_s: float | None = None
     max_queue: int | None = None
@@ -102,11 +108,15 @@ def _onboard(hm, build: dict | None, spec_kw: dict):
     return hm
 
 
-def _wire_store(spec_kw: dict, hm):
-    """Attach ``hm.factors`` as the tenant's store in P mode (NP-mode tenants
-    have nothing to spill).  An explicit ``store=`` wins."""
+def _wire_store(spec_kw: dict, hm, mesh):
+    """Attach ``hm.factors`` as the tenant's store in P mode on one device.
+
+    NP-mode tenants have nothing to spill, and a meshed executor holds the
+    factors it captured when it was made (copies on other devices, slices
+    by block): spilling the store would free nothing of them while it
+    blocked launches.  An explicit ``store=`` wins."""
     factors = getattr(hm, "factors", None)
-    if isinstance(factors, FactorStore) and factors.nbytes()["total"] > 0:
+    if mesh is None and isinstance(factors, FactorStore) and factors.nbytes()["total"] > 0:
         spec_kw.setdefault("store", factors)
 
 
@@ -115,13 +125,14 @@ def apply_tenant(hm, max_batch: int = 64, use_kernels: bool = True, mesh=None,
     """Spec of an apply-backed tenant (``Z = H X`` query traffic).
 
     ``hm`` is an H-matrix, or raw ``(n, d)`` coordinates onboarded by the
-    device build (options in ``build``, its time in ``build_s``); ``mesh=``
-    raises ``NotImplementedError``.
+    device build (options in ``build``, its time in ``build_s``).  With a
+    ``mesh`` each panel's blocks are sharded over it (row shards, any
+    width), as :class:`~repro_torch.serve.step.HMatrixServer` does.
     """
     from ..core.hmatrix import make_apply
     hm = _onboard(hm, build, spec_kw)
     launch = make_apply(hm, use_kernels=use_kernels, mesh=mesh)
-    _wire_store(spec_kw, hm)
+    _wire_store(spec_kw, hm, mesh)
     spec_kw.setdefault("device", hm.device)
     return TenantSpec(n=hm.shape[0], max_batch=max_batch, launch=launch, **spec_kw)
 
@@ -139,10 +150,13 @@ def solve_tenant(hm, sigma2: float, max_batch: int = 8, tol: float = 1e-5, max_i
     (``"bj"``, ``"none"``, ``"hlu"`` or a prebuilt ``HLUPreconditioner``);
     an H-LU factorization adds its setup time to ``build_s`` and its bytes
     to ``precond_nbytes``.  A panel the NaN/Inf guard relaunches logs a
-    second record.
+    second record.  With a ``mesh`` each panel's columns are sharded over it
+    (block Jacobi or no preconditioner) and ``max_batch`` rounds up to a
+    multiple of its shard count.
     """
     from ..solve import make_solver
     hm = _onboard(hm, spec_kw.pop("build", None), spec_kw)
+    max_batch, n_dev = mesh_panel(max_batch, mesh)
     solve = make_solver(hm, sigma2, tol=tol, max_iter=max_iter, precondition=precondition,
                         use_kernels=use_kernels, mesh=mesh, precond=precond, hlu_opts=hlu_opts)
     pre = solve.preconditioner
@@ -153,12 +167,13 @@ def solve_tenant(hm, sigma2: float, max_batch: int = 8, tol: float = 1e-5, max_i
             info_log.append(info)
         return c
 
-    _wire_store(spec_kw, hm)
+    _wire_store(spec_kw, hm, mesh)
     spec_kw.setdefault("device", hm.device)
     if pre is not None:
         spec_kw.setdefault("precond_nbytes", int(pre.nbytes()))
         spec_kw["build_s"] = (spec_kw.get("build_s") or 0.0) + pre.setup_seconds
-    return TenantSpec(n=hm.shape[0], max_batch=max_batch, launch=launch, **spec_kw)
+    return TenantSpec(n=hm.shape[0], max_batch=max_batch, launch=launch, n_dev=n_dev,
+                      **spec_kw)
 
 
 class _Tenant:
@@ -173,8 +188,8 @@ class _Tenant:
         self.name = name
         self.spec = spec
         guard = resilience is not None and resilience.validate_outputs
-        self.lane = PanelLane(spec.n, spec.max_batch, spec.launch, slots=slots,
-                              injector=injector, guard_outputs=guard,
+        self.lane = PanelLane(spec.n, spec.max_batch, spec.launch, n_dev=spec.n_dev,
+                              slots=slots, injector=injector, guard_outputs=guard,
                               store=spec.store, device=spec.device)
         self.res = LaneResilience(resilience, name) if resilience is not None else None
         self.pending: list = []         # [(np vector, PanelFuture, t_arrival)]

@@ -18,19 +18,22 @@ Port of ``repro.solve.cg``.  The reference runs the whole solve as one
     (``repro_torch.harith``), applied every iteration by two block sweeps
     (``harith.hlu.hlu_solve_panels``);
   * pad rows (``n_pad > n``) are masked out of the operator and the
-    preconditioner, so the iteration runs on the leading (n, n) system.
+    preconditioner, so the iteration runs on the leading (n, n) system;
+  * the arithmetic of a trip lives in :class:`PCGIteration` (``init`` and
+    ``step`` on a :class:`PCGState`), which the sharded solver
+    (``repro_torch.parallel.hshard``) steps once per shard, in lockstep.
 """
 from __future__ import annotations
 
 import threading
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from .._device import as_f32, require_full_fp32
+from .._device import require_full_fp32
 from ..core.clustering import permute_from_tree, permute_to_tree
-from ..core.hmatrix import HMatrix, apply_in_tree_order, diagonal_blocks
+from ..core.hmatrix import HMatrix, apply_in_tree_order, diagonal_blocks, operand
 from ..harith.hlu import HLUFactors, hlu_solve_panels
 from ..harith.precond import HLUPreconditioner, make_hlu_preconditioner
 
@@ -126,73 +129,118 @@ def build_preconditioner(hm: HMatrix, sigma2: float, use_kernels: bool = True) -
     return batched_block_cholesky_ref(blocks)
 
 
+class PCGState(NamedTuple):
+    """The PCG's state between trips, on one device; every field is (R,)
+    but ``x``, ``r``, ``p``, which are (n_pad, R)."""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rs: torch.Tensor
+    rr: torch.Tensor
+    active: torch.Tensor
+    iters_col: torch.Tensor
+
+
+class PCGIteration:
+    """The active-mask PCG's arithmetic on one device: the operator
+    ``A + sigma2 I`` and the preconditioner, both with the pad rows masked
+    out, and :meth:`init` / :meth:`step` on a :class:`PCGState`.
+
+    ``tol2`` is the SQUARED absolute residual tolerance; ``chol`` the
+    block-Jacobi factors, the H-LU factors (``HLUFactors``) or None.  The
+    single-device loop (:func:`pcg_tree_ordered`) and the sharded solver
+    (``repro_torch.parallel.hshard``), which steps one of these per shard in
+    lockstep, share this arithmetic.
+    """
+
+    def __init__(self, tree, plan, kernel, k: int, use_kernels: bool, sigma2: float,
+                 tol2: float, points: torch.Tensor, factors, groups: dict, chol,
+                 device, dtype=torch.float32):
+        self.tree, self.plan, self.kernel, self.k = tree, plan, kernel, k
+        self.use_kernels = use_kernels
+        self.sigma2, self.tol2 = sigma2, tol2
+        self.points, self.factors, self.groups, self.chol = points, factors, groups, chol
+        n, n_pad = tree.n, tree.n_pad
+        self._pad_rows = (torch.arange(n_pad, device=device) < n)[:, None] \
+            if n_pad > n else None
+        self._zero = torch.zeros((), dtype=dtype, device=device)
+        self._one = torch.ones((), dtype=dtype, device=device)
+
+    def _mask(self, v):
+        return v if self._pad_rows is None else torch.where(self._pad_rows, v, self._zero)
+
+    def apply_op(self, v):
+        z = apply_in_tree_order(self.tree, self.plan, self.kernel, self.k, self.use_kernels,
+                                self.points, self.factors, self.groups, v)
+        return self._mask(z + self.sigma2 * v)
+
+    def prec(self, r):
+        chol = self.chol
+        if chol is None:
+            return r
+        if isinstance(chol, HLUFactors):
+            return self._mask(hlu_solve_panels(chol, r))
+        c = self.plan.c_leaf
+        n_pad, r_width = r.shape
+        rb = r.reshape(n_pad // c, c, r_width)
+        if self.use_kernels:
+            from ..kernels.batched_block_solve.ops import batched_block_cholesky_solve
+            y = batched_block_cholesky_solve(chol, rb)
+        else:
+            from ..kernels.batched_block_solve.ref import batched_block_cholesky_solve_ref
+            y = batched_block_cholesky_solve_ref(chol, rb)
+        return self._mask(y.reshape(n_pad, r_width))
+
+    def init(self, b_pad: torch.Tensor) -> PCGState:
+        """The state at x0 = 0 for a tree-ordered panel ``b_pad: (n_pad, R)``."""
+        r = b_pad
+        p = self.prec(r)
+        rr = (r * r).sum(0)
+        return PCGState(x=torch.zeros_like(b_pad), r=r, p=p, rs=(r * p).sum(0), rr=rr,
+                        active=rr > self.tol2,
+                        iters_col=torch.zeros(b_pad.shape[1], dtype=torch.int32,
+                                              device=b_pad.device))
+
+    def step(self, s: PCGState, it: int) -> PCGState:
+        """Trip ``it`` (from 0): frozen columns keep their state exactly."""
+        zero, one = self._zero, self._one
+        active = s.active
+        ap = self.apply_op(s.p)
+        den = (s.p * ap).sum(0)
+        ok = active & (den > 0)
+        alpha = torch.where(ok, s.rs / torch.where(ok, den, one), zero)
+        x = s.x + alpha[None, :] * s.p
+        r = s.r - alpha[None, :] * ap
+        rr_new = torch.where(active, (r * r).sum(0), s.rr)
+        z = self.prec(r)
+        rs_new = (r * z).sum(0)
+        still = active & (rr_new > self.tol2)
+        beta = torch.where(still, rs_new / torch.where(active, s.rs, one), zero)
+        p = torch.where(still[None, :], z + beta[None, :] * s.p, s.p)
+        rs = torch.where(still, rs_new, s.rs)
+        iters_col = torch.where(active, torch.full_like(s.iters_col, it + 1), s.iters_col)
+        return PCGState(x=x, r=r, p=p, rs=rs, rr=rr_new, active=still, iters_col=iters_col)
+
+
 def pcg_tree_ordered(tree, plan, kernel, k: int, use_kernels: bool, sigma2: float,
                      tol2: float, max_iter: int, points: torch.Tensor, factors,
                      groups: dict, chol, b_pad: torch.Tensor):
     """Active-mask PCG on a TREE-ordered panel ``b_pad: (n_pad, R)``.
 
     ``tol2`` is the SQUARED absolute residual tolerance; ``chol`` the
-    block-Jacobi factors, the H-LU factors (``HLUFactors``) or None.  Returns ``(x_pad, it, iters_col, rr)``
-    with ``rr`` the final squared residual norms; ``it ==
-    iters_col.max()``, as in the reference.
+    block-Jacobi factors, the H-LU factors (``HLUFactors``) or None.
+    Returns ``(x_pad, it, iters_col, rr)`` with ``rr`` the final squared
+    residual norms; ``it == iters_col.max()``, as in the reference.
     """
-    n, n_pad = tree.n, tree.n_pad
-    c = plan.c_leaf
-    n_leaf = n_pad // c
-    r_width = b_pad.shape[1]
-    pad_rows = (torch.arange(n_pad, device=b_pad.device) < n)[:, None] \
-        if n_pad > n else None
-    zero = torch.zeros((), dtype=b_pad.dtype, device=b_pad.device)
-
-    def _mask(v):
-        return v if pad_rows is None else torch.where(pad_rows, v, zero)
-
-    def apply_op(v):
-        z = apply_in_tree_order(tree, plan, kernel, k, use_kernels, points, factors,
-                                groups, v)
-        return _mask(z + sigma2 * v)
-
-    def prec(r):
-        if chol is None:
-            return r
-        if isinstance(chol, HLUFactors):
-            return _mask(hlu_solve_panels(chol, r))
-        rb = r.reshape(n_leaf, c, r_width)
-        if use_kernels:
-            from ..kernels.batched_block_solve.ops import batched_block_cholesky_solve
-            y = batched_block_cholesky_solve(chol, rb)
-        else:
-            from ..kernels.batched_block_solve.ref import batched_block_cholesky_solve_ref
-            y = batched_block_cholesky_solve_ref(chol, rb)
-        return _mask(y.reshape(n_pad, r_width))
-
-    r = b_pad                                            # x0 = 0
-    p = prec(r)
-    rr = (r * r).sum(0)
-    rs = (r * p).sum(0)
-    active = rr > tol2
-    x = torch.zeros_like(b_pad)
-    iters_col = torch.zeros(r_width, dtype=torch.int32, device=b_pad.device)
+    pcg = PCGIteration(tree, plan, kernel, k, use_kernels, sigma2, tol2, points, factors,
+                       groups, chol, b_pad.device, b_pad.dtype)
+    state = pcg.init(b_pad)
     it = 0
-    one = torch.ones((), dtype=b_pad.dtype, device=b_pad.device)
-    while it < max_iter and bool(active.any()):
-        ap = apply_op(p)
-        den = (p * ap).sum(0)
-        ok = active & (den > 0)
-        alpha = torch.where(ok, rs / torch.where(ok, den, one), zero)
-        x = x + alpha[None, :] * p
-        r = r - alpha[None, :] * ap
-        rr_new = torch.where(active, (r * r).sum(0), rr)
-        z = prec(r)
-        rs_new = (r * z).sum(0)
-        still = active & (rr_new > tol2)
-        beta = torch.where(still, rs_new / torch.where(active, rs, one), zero)
-        p = torch.where(still[None, :], z + beta[None, :] * p, p)
-        rs = torch.where(still, rs_new, rs)
-        iters_col = torch.where(active, torch.full_like(iters_col, it + 1), iters_col)
-        rr, active = rr_new, still
+    while it < max_iter and bool(state.active.any()):
+        state = pcg.step(state, it)
         it += 1
-    return x, it, iters_col, rr
+    return state.x, it, state.iters_col, state.rr
 
 
 def make_solver(hm: HMatrix, sigma2: float, tol: float = 1e-5, max_iter: int = 300,
@@ -211,6 +259,11 @@ def make_solver(hm: HMatrix, sigma2: float, tol: float = 1e-5, max_iter: int = 3
     H-apply, the block solves and the factorization through the kernel
     wrappers.  Returns ``solve(F) -> (C, SolveInfo)`` for ``F: (N,)`` or
     ``(N, R)``.
+
+    With a ``mesh`` (``repro_torch.parallel.make_panel_mesh``) the panel's
+    columns are sharded over it and the shards iterate in lockstep
+    (``repro_torch.parallel.hshard.make_sharded_solver``); only block Jacobi
+    or no preconditioner.
     """
     pre = None
     if isinstance(precond, HLUPreconditioner):
@@ -221,10 +274,15 @@ def make_solver(hm: HMatrix, sigma2: float, tol: float = 1e-5, max_iter: int = 3
         raise ValueError(f"unknown precond {precond!r}; expected 'bj', 'hlu', 'none' or an "
                          "HLUPreconditioner")
     if mesh is not None:
-        raise NotImplementedError("mesh= (the multi-GPU solver) is not ported yet; it "
-                                  "comes with the multi-GPU slice of the port")
+        if precond == "hlu":
+            raise ValueError(
+                "precond='hlu' is single-device: the H-LU substitution sweeps are sequential "
+                "across block rows, which defeats the mesh-sharded solver's column "
+                "parallelism; shard RHS columns over tenants instead, or use precond='bj'")
+        from ..parallel.hshard import make_sharded_solver
+        return make_sharded_solver(hm, sigma2, mesh, tol=tol, max_iter=max_iter,
+                                   precondition=precond == "bj", use_kernels=use_kernels)
     tree, plan = hm.tree, hm.plan
-    n = tree.n
     tol2 = float(tol) * float(tol)
     if precond == "hlu":
         if pre is None:
@@ -238,10 +296,7 @@ def make_solver(hm: HMatrix, sigma2: float, tol: float = 1e-5, max_iter: int = 3
 
     def solve(f):
         require_full_fp32("solve", hm.device)
-        f = as_f32(f, hm.device)
-        if f.ndim not in (1, 2) or f.shape[0] != n:
-            raise ValueError(f"rhs shape {tuple(f.shape)} incompatible with "
-                             f"H-matrix of size ({n}, {n})")
+        f = operand(f, hm, "rhs")
         fp = f[:, None] if f.ndim == 1 else f
         x, it, iters_col, rr = pcg_tree_ordered(
             tree, plan, hm.kernel, hm.k, use_kernels, sigma2, tol2, max_iter,

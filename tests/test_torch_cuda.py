@@ -765,3 +765,47 @@ def test_entry_points_raise_while_tf32_is_on(cuda_device, monkeypatch):
     finally:
         torch.set_float32_matmul_precision(old)
     assert torch.equal(apply_h(x), apply_h(x))        # TF32 off again: runs
+
+
+@pytest.mark.cuda
+def test_sharded_executors_on_card_order_after_their_shards(cuda_device):
+    """The sharded apply and solve on four logical shards of card 0 (and on
+    every card where there are several), issued from a second stream behind
+    a device-side sleep: the gathered results, read on that stream, equal
+    the same shards run on the CPU mesh within 1e-5, and two calls give the
+    same bits; every shard launched the kernels."""
+    from repro_torch.core import build_hmatrix, halton, make_apply
+    from repro_torch.parallel import make_panel_mesh
+    from repro_torch.solve import make_solver
+    pts = halton(3000, 2) * 4.0
+    x = torch.from_numpy(_rs(21).randn(3000, 6).astype(np.float32))
+    hm = build_hmatrix(pts, "gaussian", k=16, c_leaf=128, precompute=True)
+    hm_cpu = build_hmatrix(pts, "gaussian", k=16, c_leaf=128, precompute=True, device="cpu")
+    cpu_mesh = make_panel_mesh(devices=("cpu",) * 4)
+    meshes = [make_panel_mesh(devices=("cuda:0",) * 4)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_panel_mesh())
+    side = torch.cuda.Stream()
+    for mesh in meshes:
+        for shard in ("columns", "rows"):
+            want = make_apply(hm_cpu, mesh=cpu_mesh, shard=shard)(x)
+            apply_s = make_apply(hm, mesh=mesh, shard=shard)
+            _build.reset_launches()
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(int(5e7))         # the shards queue behind it
+                z = apply_s(x.to(cuda_device))
+                z_host = z.cpu()                    # a read ordered on the same stream
+            assert _build.LAUNCHES["batched_kernel_matmat"] + \
+                _build.LAUNCHES["batched_kernel_matvec"] >= len(mesh.devices)
+            assert _build.LAUNCHES["batched_lowrank_matmat"] >= len(mesh.devices)
+            assert _rel(z_host, want) <= 1e-5
+            with torch.cuda.stream(side):
+                assert torch.equal(apply_s(x.to(cuda_device)), z)
+        solve = make_solver(hm, 0.5, tol=1e-5, max_iter=300, mesh=mesh)
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(int(5e7))
+            c, info = solve(x.to(cuda_device))
+            c_host = c.cpu()
+        c_want, _ = make_solver(hm_cpu, 0.5, tol=1e-5, max_iter=300, mesh=cpu_mesh)(x)
+        assert info.converged and info.iterations == int(info.iters_per_column.max())
+        torch.testing.assert_close(c_host, c_want, rtol=1e-3, atol=1e-4)

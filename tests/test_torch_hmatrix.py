@@ -118,7 +118,7 @@ def test_apply_operand_checks_and_empty_panel():
     assert apply_h(np.zeros((300, 0), np.float32)).shape == (300, 0)
     z1, z2 = apply_h(x), apply_h(x)
     assert torch.equal(z1, z2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="PanelMesh"):
         make_apply(hm, mesh=object())
     # recompression at build time: a smaller store whose apply stays within
     # 5 tol of the flat one (tests/test_factor_store.py's bound)

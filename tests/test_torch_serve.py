@@ -211,10 +211,12 @@ def test_lazy_solveinfo_defers_fetch():
 
 
 def test_servers_reject_a_mesh():
+    """A mesh must be a ``PanelMesh`` (the meshed servers themselves are held
+    in ``tests/test_torch_shard.py``)."""
     hm, _ = _system(300, 1)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="PanelMesh"):
         HMatrixServer(hm, max_batch=4, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="PanelMesh"):
         HMatrixSolveServer(hm, SIGMA2, max_batch=4, mesh=object())
 
 

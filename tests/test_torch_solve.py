@@ -89,7 +89,7 @@ def test_solver_contract_vector_frozen_column_and_options():
     c_hlu, info_hlu = solve_hlu(f)
     assert info_hlu.converged and solve_hlu.preconditioner is not None
     torch.testing.assert_close(c_hlu, c, rtol=1e-3, atol=1e-4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="PanelMesh"):
         make_solver(hm, 1e-2, mesh=object())
 
 
