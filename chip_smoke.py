@@ -16,7 +16,10 @@ Phases (any failure ends the run with a non-zero exit code):
      largest batch shapes, at B = 1 (their latency floor) and, at each
      launch width the wrapper can pick, on H-LU's batch sizes; the
      H-attention near field at the serving shape (80, 16, 512, 128) and at
-     one prefill_32k layer (40, 64, 512, 128)), with times
+     one prefill_32k layer (40, 64, 512, 128); its backward #11b from #11's
+     outputs at the training shape (40, 8, 512, 128), at the serving shape
+     and with tied row maxima, against the plain derivative, timed beside
+     autograd through SDPA on the same band), with times
      of kernel, plain version and the PyTorch library call that computes the
      same function (the ACA also on all level groups of P, as one build runs
      it, with the route each group took; its two routes, resident at every
@@ -126,8 +129,24 @@ Phases (any failure ends the run with a non-zero exit code):
      bit-identical; sharded and unsharded times side by side, the servers'
      beside unsharded servers on the same requests.
 
-Kernel launch counts are set to 0 before each of phases 2 to 9 and m and read
-after it: each phase must have launched the kernels of its own path
+  t. training (run last): qwen2.5-14b-hmatrix at full width and 8 layers
+     (6 if the peak passes 72 GiB), bf16, random from a generator seeded on
+     the card; 3 AdamW steps of 2 x 4,096 tokens in 2 microbatches with
+     remat through ``make_train_step`` from ``make_batch``: finite loss and
+     grad norm, #11 launched twice per layer and microbatch and #11b once,
+     seconds a step, tokens/s, peak memory; then, outside the count, one
+     step under ``torch.profiler`` (device time by part, idle share), one
+     split into stages by CUDA events, step 1 again from the same state
+     (loss and parameters bit-identical), a 2-layer full-width fp32 model's
+     gradients through #11 / #11b against the plain near field and its plain
+     backward on the card (1e-3 relative per parameter tensor), the flash
+     VJP at S = 512 against autograd through the plain loop (1e-4), and on
+     the smoke config 4 steps straight against 2, a save, a fresh restore
+     and 2 more (bit for bit), and ``launch/train.py --smoke`` resuming from
+     its directory.
+
+Kernel launch counts are set to 0 before each of phases 2 to 9, m and t and
+read after it: each phase must have launched the kernels of its own path
 (``PATH_KERNELS``), and every kernel must have run on the main path.
 Kernel, plain and library times are device times: CUDA events around calls
 enqueued behind a device-side sleep (``gpu_ms``), so that a wrapper's host
@@ -143,6 +162,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -200,6 +220,9 @@ KERNELS = {
                             "src/repro/kernels/batched_schur_update/kernel.py:48"),
     "hattention_nearfield": ("src/repro_torch/csrc/hattention_nearfield.cu",
                              "src/repro/kernels/hattention_block/kernel.py:74"),
+    # no pallas_call: repro takes this gradient by jax.grad of its einsum near field
+    "hattention_nearfield_bwd": ("src/repro_torch/csrc/hattention_nearfield_bwd.cu",
+                                 "src/repro/core/hattention.py:178"),
 }
 # the kernels each main-path phase must launch itself
 PATH_KERNELS = {
@@ -215,6 +238,7 @@ PATH_KERNELS = {
     "hlu": ("batched_block_cholesky", "batched_recompress", "batched_trsm_panels",
             "batched_schur_dense", "batched_kernel_matmat", "batched_lowrank_matmat"),
     "lm_serve": ("hattention_nearfield",),
+    "train": ("hattention_nearfield", "hattention_nearfield_bwd"),
     "serve": ("batched_kernel_matmat", "batched_lowrank_matmat", "batched_block_cholesky",
               "batched_block_cholesky_solve"),
     "mesh": ("batched_kernel_matmat", "batched_kernel_matvec", "batched_lowrank_matmat",
@@ -1249,19 +1273,25 @@ def check_nearfield_inputs(q, k, v, label: str) -> dict:
     return ch
 
 
-def sdpa_band(q, k, v):
-    """The band of the near field as one ``scaled_dot_product_attention``
-    call over (c, 2c) key windows [leaf i-1 | leaf i] with a boolean mask
-    (previous leaf visible, own leaf causal).  A timing note only: leaf 0
-    sees zero keys in its window, and SDPA returns normalised rows, not
-    (num, den, m)."""
-    import torch.nn.functional as F
-    c = q.shape[2]
+def band_operands(k, v):
+    """Keys and values of the near field's band as (c, 2c) windows [leaf i-1
+    | leaf i] (zeros before leaf 0), and the boolean mask (previous leaf
+    visible, own leaf causal)."""
+    c = k.shape[2]
     kk = torch.cat([torch.cat([torch.zeros_like(k[:, :1]), k[:, :-1]], 1), k], 2)
     vv = torch.cat([torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], 1), v], 2)
-    ii = torch.arange(c, device=q.device)
-    mask = torch.cat([torch.ones(c, c, dtype=torch.bool, device=q.device),
+    ii = torch.arange(c, device=k.device)
+    mask = torch.cat([torch.ones(c, c, dtype=torch.bool, device=k.device),
                       ii[:, None] >= ii[None, :]], 1)
+    return kk, vv, mask
+
+
+def sdpa_band(q, k, v):
+    """The band of the near field as one ``scaled_dot_product_attention``
+    call (``band_operands``).  A timing note only: leaf 0 sees zero keys in
+    its window, and SDPA returns normalised rows, not (num, den, m)."""
+    import torch.nn.functional as F
+    kk, vv, mask = band_operands(k, v)
     return lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask, scale=1.0)
 
 
@@ -1294,6 +1324,109 @@ def check_nearfield(record):
     rec["max_abs_err"] = max(ch["max_abs_err"] for ch in rec["checks"])
     log(f"[1] hattention_nearfield serve: plain {rec['plain_ms']:.3f} ms; SDPA on the same "
         f"band (note, not a library equivalent) {rec['sdpa_note_ms']:.3f} ms")
+
+
+# #11b, the near field's backward: the training shape (2 x 4,096 tokens in
+# microbatches of one sequence: 40 heads, 8 leaves) and the serving shape
+NEARFIELD_BWD_SHAPES = {"train": (40, 8, 512, 128), "serve": (80, 16, 512, 128)}
+NEARFIELD_BWD_REL_LIMIT = 1e-4
+
+
+def nearfield_bwd_work(bh: int, nl: int, c: int, d: int) -> tuple[float, float]:
+    """(bytes, flops) #11b needs: q, k, v, num, gnum read once (and den, m,
+    gden, gm), dq, dk, dv written once; 10 D flops per visible (row, key)
+    pair (s, gnum . v and the three sums), c (c + 1) / 2 pairs in a leaf's
+    own block and c^2 in the previous leaf's."""
+    nbytes = 4.0 * bh * nl * c * (8 * d + 4)
+    pairs = float(bh) * (nl * c * (c + 1) / 2 + (nl - 1) * c * c)
+    return nbytes, 10.0 * d * pairs
+
+
+def nearfield_bwd_inputs(shape, gen, ties: bool):
+    """q, k, v as check_nearfield draws them and random cotangents; with
+    ``ties``, rows whose max is attained by several keys (key 5 of every
+    leaf a copy of key 3, key 7 of leaf n - 1 a copy of leaf n's key 3, and
+    rows 9, 40 and c - 1 of every leaf aligned with key 3), leaf 0 without
+    a previous block among them."""
+    bh, nl, c, d = shape
+    q = torch.randn(bh, nl, c, d, generator=gen, device="cuda") / math.sqrt(d)
+    k = torch.randn(bh, nl, c, d, generator=gen, device="cuda")
+    v = torch.randn(bh, nl, c, d, generator=gen, device="cuda")
+    if ties:
+        k[:, :, 5] = k[:, :, 3]
+        k[:, :-1, 7] = k[:, 1:, 3]
+        for r in (9, 40, c - 1):
+            q[:, :, r] = k[:, :, 3] / math.sqrt(d)
+    gnum = torch.randn(bh, nl, c, d, generator=gen, device="cuda")
+    gden = torch.randn(bh, nl, c, generator=gen, device="cuda")
+    gm = torch.randn(bh, nl, c, generator=gen, device="cuda")
+    return q, k, v, gnum, gden, gm
+
+
+def sdpa_band_backward(q, k, v, gout):
+    """Autograd's backward through ``sdpa_band`` (a timing note, as #11's)."""
+    import torch.nn.functional as F
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    kk, vv, mask = band_operands(leaves[1], leaves[2])
+    out = F.scaled_dot_product_attention(leaves[0], kk, vv, attn_mask=mask, scale=1.0)
+    return lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True)
+
+
+def check_nearfield_bwd(record):
+    """#11b against its plain derivative on the card, from #11's (num, den,
+    m): at the training shape, at the serving shape and with tied maxima at
+    the training shape (every shape holds leaf 0, which has no previous
+    block); two launches bit-identical; kernel, plain and SDPA-backward
+    times at the training shape, the kernel's also at the serving shape."""
+    from repro_torch.kernels.hattention_block.kernel import (hattention_nearfield_bwd_cuda,
+                                                             hattention_nearfield_cuda)
+    from repro_torch.kernels.hattention_block.ref import hattention_nearfield_bwd_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rec = record.setdefault("hattention_nearfield_bwd", {"checks": []})
+    cases = [("train", False), ("serve", False), ("train", True)]
+    for label, ties in cases:
+        shape = NEARFIELD_BWD_SHAPES[label]
+        q, k, v, gnum, gden, gm = nearfield_bwd_inputs(shape, gen, ties)
+        num, den, m = hattention_nearfield_cuda(q, k, v)
+        got = hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm)
+        want = hattention_nearfield_bwd_ref(q, k, v, num, den, m, gnum, gden, gm)
+        torch.cuda.synchronize()
+        ch = {"inputs": f"{label}{', tied maxima' if ties else ''}", "shape": list(shape)}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            ch[f"{name}_rel_err"] = rel_err(a, b)
+        ch["max_abs_err"] = max(max_abs(a, b) for a, b in zip(got, want))
+        del want
+        again = hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm)
+        ch["bit_identical"] = all(torch.equal(a, b) for a, b in zip(again, got))
+        rec["checks"].append(ch)
+        log(f"[1] hattention_nearfield_bwd {ch['inputs']} {shape}: dq rel err "
+            f"{ch['dq_rel_err']:.3e}, dk {ch['dk_rel_err']:.3e}, dv {ch['dv_rel_err']:.3e}, "
+            f"max abs err {ch['max_abs_err']:.3e}, bit-identical {ch['bit_identical']}")
+        require(all(ch[f"{n}_rel_err"] <= NEARFIELD_BWD_REL_LIMIT for n in ("dq", "dk", "dv")),
+                f"hattention_nearfield_bwd {ch['inputs']}: {ch}")
+        require(ch["bit_identical"],
+                f"hattention_nearfield_bwd {ch['inputs']}: two launches differ")
+        if not ties:
+            nbytes, flops = nearfield_bwd_work(*shape)
+            bms, by = bound_ms(nbytes, flops)
+            args = (q, k, v, num, den, m, gnum, gden, gm)
+            ms = gpu_ms(lambda: hattention_nearfield_bwd_cuda(*args), 5)
+            rec[f"{label}_ms"], rec[f"{label}_bound_ms"] = ms, bms
+            rec[f"{label}_gflop"] = flops / 1e9
+            if label == "train":
+                rec.update(ms=ms, bound_ms=bms, bound_by=by, library_ms=None,
+                           library_note="none: no single call returns this gradient",
+                           plain_ms=gpu_ms(lambda: hattention_nearfield_bwd_ref(*args), 2),
+                           sdpa_backward_note_ms=gpu_ms(sdpa_band_backward(q, k, v, gnum), 5),
+                           timed_shape=f"train {shape}")
+            log(f"[1] hattention_nearfield_bwd {label} {shape}: {ms:.3f} ms, bound {bms:.3f} ms "
+                f"({by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.2f} GB)")
+        del q, k, v, gnum, gden, gm, num, den, m, got, again
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = max(ch["max_abs_err"] for ch in rec["checks"])
+    log(f"[1] hattention_nearfield_bwd train: plain {rec['plain_ms']:.3f} ms; autograd through "
+        f"SDPA on the same band (note, not a library equivalent) "
+        f"{rec['sdpa_backward_note_ms']:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1873,16 +2006,19 @@ LM_LOGITS_LIMIT, LM_HATT_LIMIT, LM_EXACT_LIMIT = 1e-3, 1e-4, 1e-4
 
 @contextlib.contextmanager
 def plain_nearfield():
-    """Within the block, ``h_attention``'s near field runs its plain version
-    on the card (``kernels/hattention_block/ref.py``) instead of #11."""
-    from repro_torch.core import hattention
-    from repro_torch.kernels.hattention_block.ref import hattention_nearfield_ref
-    orig = hattention.hattention_nearfield_op
-    hattention.hattention_nearfield_op = hattention_nearfield_ref
+    """Within the block, ``h_attention``'s near field and its backward run
+    their plain versions on the card (``kernels/hattention_block/ref.py``)
+    instead of #11 and #11b."""
+    from repro_torch.kernels.hattention_block import ops
+    from repro_torch.kernels.hattention_block.ref import (hattention_nearfield_bwd_ref,
+                                                          hattention_nearfield_ref)
+    orig = ops.hattention_nearfield_op, ops.hattention_nearfield_bwd_op
+    ops.hattention_nearfield_op = hattention_nearfield_ref
+    ops.hattention_nearfield_bwd_op = hattention_nearfield_bwd_ref
     try:
         yield
     finally:
-        hattention.hattention_nearfield_op = orig
+        ops.hattention_nearfield_op, ops.hattention_nearfield_bwd_op = orig
 
 
 def layer0_qkv(params, cfg, prompts):
@@ -2067,6 +2203,348 @@ def run_lm_checks(state: dict, record):
             f"lm fp32: rows below 2 c_leaf differ from exact attention: {fp32}")
     rec["phase_s"] = time.perf_counter() - state["t_phase"]
     log(f"[lm] phase 8 wall {rec['phase_s']:.1f} s (main path {rec['main_path_s']:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# phase t: training (qwen2.5-14b-hmatrix)
+# ---------------------------------------------------------------------------
+
+# full width, depth cut to 8 layers (6 if the peak passes 72 GiB): the
+# training state is 16 bytes a parameter (bf16 weights and gradients, f32
+# accumulator and AdamW moments); train_4k's sequence, its batch of 256 cut to 2
+TRAIN_LAYERS, TRAIN_LAYERS_CUT, TRAIN_PEAK_LIMIT_GIB = 8, 6, 72.0
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 2, 4096, 2, 3
+TRAIN_PARAMS_LAYER, TRAIN_PARAMS_REST = 275_268_608, 1_557_140_480
+TRAIN_GRAD_LIMIT, TRAIN_FLASH_LIMIT = 1e-3, 1e-4
+PEAK_BF16 = 989e12     # H100 SXM, dense bf16 tensor-core FLOP/s (data sheet)
+TRAIN_CKPT_DIR = ROOT / "build" / "chip_smoke_train"
+TRAIN_DEV = "cuda"     # a CPU rehearsal of the phase's control flow sets "cpu"
+
+
+def train_opt_cfg():
+    from repro_torch.train.optimizer import AdamWConfig
+    return AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=100)
+
+
+def train_matmul_flops(cfg, tokens: int) -> float:
+    """bf16 matmul FLOPs of one train step: the blocks' projections four
+    times (forward, the remat forward, and the two products of the
+    backward), the LM head three times."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    block = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * d \
+        + 3 * d * cfg.d_ff
+    return 2.0 * tokens * (4 * cfg.n_layers * block + 3 * d * cfg.padded_vocab)
+
+
+# parts of a train step's device time, by kernel name (first match): cuBLAS
+# runs the bf16 products as nvjet kernels and the far field's fp32 products
+# (no TF32) as gemv / gemm kernels, the only fp32 products of the bf16 model
+TRAIN_PARTS = (("#11 near field", ("nearfield_kernel",)),
+               ("#11b near-field backward", ("dq_kernel", "dkv_kernel", "fix_kernel")),
+               ("bf16 GEMM (projections, head)", ("nvjet", "bf16")),
+               ("fp32 products (far field ACA, forward and backward)", ("gemv", "gemm")),
+               ("gathers and scatters (index kernels)", ("index", "scatter", "gather")))
+TRAIN_OTHER = "other (elementwise, reductions, copies: norms, loss, AdamW, ACA glue)"
+
+
+def train_profile_split(kernels: list) -> dict:
+    """Device ms by part of a profiled step, from every kernel's name."""
+    split = {name: 0.0 for name, _ in TRAIN_PARTS}
+    split[TRAIN_OTHER] = 0.0
+    for k in kernels:
+        name = k["name"].lower()
+        part = next((part for part, keys in TRAIN_PARTS if any(key in name for key in keys)),
+                    TRAIN_OTHER)
+        split[part] += k["ms"]
+    return split
+
+
+def train_stage_split(state, batch, opt_cfg) -> dict:
+    """One train step's stages timed by CUDA events, as ``train_step`` runs
+    them: per microbatch the forward to the logits, the loss, the backward
+    (with the blocks' remat forward) and the f32 accumulation, then AdamW."""
+    from repro_torch.models.lm import cross_entropy_loss
+    from repro_torch.train.optimizer import apply_updates
+    params, cfg = state["params"], state["params"].cfg
+    names, plist = zip(*params.named_parameters())
+    ev = []
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev.append(e)
+
+    size = batch["tokens"].shape[0] // TRAIN_MICRO
+    acc = None
+    mark()
+    for i in range(TRAIN_MICRO):
+        mb = {key: batch[key][i * size:(i + 1) * size] for key in ("tokens", "labels")}
+        logits, _ = params(mb["tokens"], mode="train", remat=True)
+        mark()
+        loss = cross_entropy_loss(logits, mb["labels"], cfg.vocab_size)
+        mark()
+        grads = torch.autograd.grad(loss, plist)
+        del logits
+        mark()
+        if acc is None:
+            acc = [g.float() / TRAIN_MICRO for g in grads]
+        else:
+            for a, g in zip(acc, grads):
+                a.add_(g.float() / TRAIN_MICRO)
+        del grads, loss
+        mark()
+    apply_updates(params, dict(zip(names, acc)), state["opt"], state["step"], opt_cfg)
+    state["step"] += 1
+    mark()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    out = {"forward_to_logits": 0.0, "loss": 0.0, "backward_with_remat": 0.0,
+           "accumulate_f32": 0.0}
+    for i in range(TRAIN_MICRO):
+        for j, key in enumerate(out):
+            out[key] += ms[4 * i + j]
+    out["optimizer"] = ms[-1]
+    out["step"] = sum(ms)
+    return out
+
+
+def run_train(layers: int, record) -> dict:
+    """The main path of phase t: ``TRAIN_STEPS`` AdamW steps of the
+    full-width model at ``layers`` layers through ``make_train_step``, from
+    ``make_batch``.  Returns what the checks after the launch count need."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.api import count_params
+    from repro_torch.train.step import make_train_step
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_ARCH).replace(n_layers=layers)
+    opt_cfg = train_opt_cfg()
+    init_state, train_step = make_train_step(cfg, opt_cfg, microbatches=TRAIN_MICRO, remat=True,
+                                             device=TRAIN_DEV)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      seed=SEED)
+    batches = [make_batch(dcfg, s, device=TRAIN_DEV) for s in range(TRAIN_STEPS + 2)]
+    gen = torch.Generator(device=TRAIN_DEV).manual_seed(SEED)
+    state, t_init = wall_s(lambda: init_state(gen))
+    n_params = count_params(state["params"])
+    torch.cuda.reset_peak_memory_stats()
+    steps, first = [], None
+    for s in range(TRAIN_STEPS):
+        (state, metrics), secs = wall_s(lambda: train_step(state, batches[s]))
+        loss, gnorm, lr = torch.stack([metrics["loss"], metrics["grad_norm"],
+                                       metrics["lr"]]).tolist()
+        steps.append({"step": s, "loss": loss, "grad_norm": gnorm, "lr": lr, "seconds": secs})
+        log(f"[train] {layers} layers, step {s}: loss {loss:.6f}, grad norm {gnorm:.4f}, lr "
+            f"{lr:.3e}, {secs:.3f} s")
+        if s == 0:
+            first = {"loss": metrics["loss"].cpu(),
+                     "params": [p.detach().to("cpu", copy=True)
+                                for p in state["params"].parameters()]}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    warm = [st["seconds"] for st in steps[1:]]
+    rec = {"arch": LM_ARCH, "layers": layers, "params": n_params, "dtype": cfg.dtype,
+           "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+           "remat": True, "init_s": t_init, "steps": steps, "peak_memory_gib": peak,
+           "s_per_step": sum(warm) / len(warm), "tok_per_s": tokens * len(warm) / sum(warm),
+           "bf16_matmul_tflop_per_step": train_matmul_flops(cfg, tokens) / 1e12,
+           "bf16_matmul_bound_s": train_matmul_flops(cfg, tokens) / PEAK_BF16}
+    record.setdefault("train", {})[f"main_{layers}_layers"] = rec
+    log(f"[train] {LM_ARCH} at {layers} layers: {n_params:,} parameters ({cfg.dtype}) made in "
+        f"{t_init:.2f} s; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {TRAIN_MICRO} "
+        f"microbatches with remat: {rec['s_per_step']:.3f} s a step after the first "
+        f"({rec['tok_per_s']:.0f} tok/s); bf16 matmuls {rec['bf16_matmul_tflop_per_step']:.1f} "
+        f"TFLOP a step, {rec['bf16_matmul_bound_s']:.3f} s at the bf16 peak; peak memory "
+        f"{peak:.2f} GiB")
+    require(n_params == layers * TRAIN_PARAMS_LAYER + TRAIN_PARAMS_REST,
+            f"train: {n_params} parameters at {layers} layers")
+    require(all(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]) for st in steps),
+            f"train: a non-finite loss or grad norm: {steps}")
+    return {"cfg": cfg, "state": state, "train_step": train_step, "init_state": init_state,
+            "batches": batches, "first": first, "rec": rec, "t_phase": t_phase}
+
+
+def check_train_launches(st: dict) -> None:
+    """#11 twice per layer and microbatch (forward and the remat forward of
+    the backward), #11b once, in every step of the counted run."""
+    from repro_torch import _build
+    per_step = st["cfg"].n_layers * TRAIN_MICRO
+    want = {"hattention_nearfield": 2 * per_step * TRAIN_STEPS,
+            "hattention_nearfield_bwd": per_step * TRAIN_STEPS}
+    got = {name: _build.LAUNCHES[name] for name in want}
+    st["rec"]["launches_expected"] = want
+    require(got == want, f"train: launches {got}, expected {want}")
+
+
+def train_grads(params, batch, loss_fn):
+    names, plist = zip(*params.named_parameters())
+    loss = loss_fn(params, batch)
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, plist)))
+
+
+def grads_rel(a: dict, b: dict) -> dict:
+    return {name: rel_err(a[name].float(), b[name].float()) for name in a}
+
+
+def run_train_checks(st: dict, record) -> None:
+    """After the launch count: one step under the profiler and one split by
+    stage, step 1 again from the same state (bit-identical loss and
+    parameters), the 2-layer fp32 gradients through the kernels against the
+    plain near field, the flash VJP against autograd through the plain
+    loop, and resume and the launcher on the smoke config."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models.api import get_model
+    from repro_torch.train.step import make_loss_fn
+    rec = st["rec"]
+    state, train_step, batches = st["state"], st["train_step"], st["batches"]
+    # the stage split before the profiled step, each after a collection, so
+    # that neither pays for the other's (or the profiler's) Python objects
+    gc.collect()
+    rec["stages_ms"] = train_stage_split(state, batches[TRAIN_STEPS], train_opt_cfg())
+    log("[train stages] " + ", ".join(f"{k} {v:.1f} ms" for k, v in rec["stages_ms"].items()))
+    gc.collect()
+    prof = device_profile(lambda: train_step(state, batches[TRAIN_STEPS + 1]), top=10 ** 6)
+    prof["split"] = train_profile_split(prof["top"])
+    prof["top"] = prof["top"][:15]
+    rec["profile"] = prof
+    log(f"[train profile] one step: host {prof['host_s'] * 1e3:.1f} ms, "
+        f"{prof['kernel_launches']} kernels {prof['device_ms']:.1f} ms, device idle "
+        f"{prof['idle_share']:.3f}")
+    for part, ms in prof["split"].items():
+        log(f"[train profile]   {ms:10.2f} ms  {part}")
+    for k in prof["top"]:
+        log(f"[train profile]   {k['ms']:10.3f} ms  {k['calls']:6d}x  {k['name']}")
+    del prof
+    gc.collect()
+    del state
+    st.pop("state")
+    torch.cuda.empty_cache()
+
+    # step 1 again from the same (re-made) state
+    state = st["init_state"](torch.Generator(device=TRAIN_DEV).manual_seed(SEED))
+    state, metrics = train_step(state, batches[0])
+    first = st.pop("first")
+    same_loss = torch.equal(metrics["loss"].cpu(), first["loss"])
+    same_params = all(torch.equal(p.detach(), h.to(TRAIN_DEV))
+                      for p, h in zip(state["params"].parameters(), first["params"]))
+    rec["step1_twice_bit_identical"] = {"loss": same_loss, "params": same_params}
+    log(f"[train] step 1 twice from the same state: loss bit-identical {same_loss}, parameters "
+        f"bit-identical {same_params}")
+    require(same_loss and same_params, "train: step 1 twice from the same state differs")
+    del state, first, metrics
+    torch.cuda.empty_cache()
+
+    # the 2-layer full-width fp32 model: kernels against the plain near field
+    cfg2 = get_arch(LM_ARCH).replace(n_layers=2, dtype="float32")
+    gen = torch.Generator(device=TRAIN_DEV).manual_seed(SEED)
+    params2 = get_model(cfg2, TRAIN_DEV)["init_params"](gen)
+    batch2 = make_batch(DataConfig(vocab_size=cfg2.vocab_size, seq_len=TRAIN_SEQ,
+                                   global_batch=1, seed=SEED), 0, device=TRAIN_DEV)
+    loss_fn = make_loss_fn(cfg2, remat=True)
+    loss_k, g_k = train_grads(params2, batch2, loss_fn)
+    with plain_nearfield():
+        loss_p, g_p = train_grads(params2, batch2, loss_fn)
+    rel = grads_rel(g_k, g_p)
+    norms = {name: float(torch.linalg.vector_norm(g)) for name, g in g_k.items()}
+    del g_k, g_p
+    worst = max(rel, key=rel.get)
+    largest = sorted(norms, key=norms.get, reverse=True)[:5]
+    rec["fp32_2_layers"] = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+                            "grad_rel_err": rel, "worst": [worst, rel[worst]],
+                            "grad_norms": norms}
+    log(f"[train fp32, 2 layers, 1 x {TRAIN_SEQ}] kernels against the plain near field and its "
+        f"plain backward: loss {float(loss_k):.7f} / {float(loss_p):.7f}; largest gradient rel "
+        f"err {rel[worst]:.3e} ({worst}; limit {TRAIN_GRAD_LIMIT}); largest gradient norms "
+        + ", ".join(f"{name} {norms[name]:.4g}" for name in largest))
+    require(all(math.isfinite(v) and v <= TRAIN_GRAD_LIMIT for v in rel.values()),
+            f"train fp32: kernel and plain gradients differ: {rel}")
+
+    # the flash VJP at S = 512 <= c_leaf (chunked_attention), 2 layers, fp32
+    batch3 = make_batch(DataConfig(vocab_size=cfg2.vocab_size, seq_len=cfg2.h_c_leaf,
+                                   global_batch=1, seed=SEED), 0, device=TRAIN_DEV)
+
+    def plain_chunked(q, k, v, *, causal=True, window=0, chunk=1024, q_offset=0):
+        b, sq, h, d = q.shape
+        out, _, _ = lm_layers._flash_fwd(q, k, v, causal, window, min(chunk, k.shape[1]),
+                                         q_offset)
+        return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+    _, g_f = train_grads(params2, batch3, loss_fn)
+    orig = lm_layers.chunked_attention
+    lm_layers.chunked_attention = plain_chunked
+    try:
+        _, g_a = train_grads(params2, batch3, loss_fn)
+    finally:
+        lm_layers.chunked_attention = orig
+    rel = grads_rel(g_f, g_a)
+    worst = max(rel, key=rel.get)
+    rec["flash_vjp"] = {"seq": cfg2.h_c_leaf, "grad_rel_err": rel, "worst": [worst, rel[worst]]}
+    log(f"[train flash VJP, 2 layers fp32, 1 x {cfg2.h_c_leaf}] custom VJP against autograd "
+        f"through the plain loop: largest gradient rel err {rel[worst]:.3e} ({worst}; limit "
+        f"{TRAIN_FLASH_LIMIT})")
+    require(all(math.isfinite(v) and v <= TRAIN_FLASH_LIMIT for v in rel.values()),
+            f"train: flash VJP against autograd through the loop: {rel}")
+    del params2, g_f, g_a
+    torch.cuda.empty_cache()
+    run_train_resume(rec)
+    rec["phase_s"] = time.perf_counter() - st["t_phase"]
+    log(f"[train] phase t wall {rec['phase_s']:.1f} s")
+
+
+def run_train_resume(rec) -> None:
+    """On the smoke config on the card: 4 steps straight against 2 steps, a
+    save, a fresh restore and 2 more, bit for bit; then ``launch/train.py
+    --smoke`` run twice on one checkpoint directory (the second resumes)."""
+    import io
+    import shutil
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.runtime.checkpoint import CheckpointManager, flatten_state
+    from repro_torch.train.step import make_train_step
+    cfg = get_smoke(LM_ARCH).replace(dtype="float32")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=2, seed=SEED)
+    init_state, train_step = make_train_step(cfg, train_opt_cfg(), microbatches=2,
+                                             device=TRAIN_DEV)
+    straight = init_state(torch.Generator(device=TRAIN_DEV).manual_seed(SEED))
+    for s in range(4):
+        straight, _ = train_step(straight, make_batch(dcfg, s, device=TRAIN_DEV))
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    mgr = CheckpointManager(TRAIN_CKPT_DIR / "resume", async_save=True)
+    part = init_state(torch.Generator(device=TRAIN_DEV).manual_seed(SEED))
+    for s in range(2):
+        part, _ = train_step(part, make_batch(dcfg, s, device=TRAIN_DEV))
+    mgr.save(2, part, extra={"data_step": 2})
+    mgr.wait()
+    del part
+    resumed, manifest = mgr.restore(init_state(torch.Generator(device=TRAIN_DEV).manual_seed(1)))
+    for s in range(manifest["extra"]["data_step"], 4):
+        resumed, _ = train_step(resumed, make_batch(dcfg, s, device=TRAIN_DEV))
+    a, b = flatten_state(resumed), flatten_state(straight)
+    equal = [p for p, _ in a] == [p for p, _ in b] and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for (_, x), (_, y) in zip(a, b))
+    argv = ["--arch", LM_ARCH, "--smoke", "--device", TRAIN_DEV, "--batch", "2",
+            "--seq-len", "256", "--microbatches", "2", "--log-every", "1", "--ckpt-dir",
+            str(TRAIN_CKPT_DIR / "launcher")]
+    outs = []
+    for steps in (2, 3):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            final = train_launch.main(argv + ["--steps", str(steps)])
+        outs.append(buf.getvalue())
+    resumed_launch = "[restore] resumed from step 2" in outs[1] and final["step"] == 3
+    rec["resume"] = {"straight_equals_resumed": equal, "launcher_resumed": resumed_launch,
+                     "launcher_output": outs}
+    log(f"[train resume, smoke config] 4 steps straight equal 2 + save + restore + 2 bit for "
+        f"bit: {equal}; launch/train.py --smoke resumed from its directory: {resumed_launch}")
+    for line in outs[1].splitlines():
+        log(f"[train launcher] {line}")
+    require(equal, "train: resume differs from the straight run")
+    require(resumed_launch, f"train: the launcher did not resume: {outs}")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2547,8 +3025,8 @@ def run_mesh(pts_k, hm_p, hm_k, record) -> None:
 
 def main(record: dict) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="0123456789m",
-                        help="phases to run (default all: 0123456789m); 0 is always run")
+    parser.add_argument("--phases", default="0123456789mt",
+                        help="phases to run (default all: 0123456789mt); 0 is always run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -2593,6 +3071,7 @@ def main(record: dict) -> int:
         check_trsm(hm_k, rng, record["kernels"])
         check_schur(rng, record["kernels"])
         check_nearfield(record["kernels"])
+        check_nearfield_bwd(record["kernels"])
         for name, rec in record["kernels"].items():
             log(f"[1] {name}: max abs err {rec['max_abs_err']:.3e}, kernel {rec['ms']:.4f} ms, "
                 f"plain {rec['plain_ms']:.3f} ms, library {rec['library_ms']}, bound "
@@ -2757,7 +3236,27 @@ def main(record: dict) -> int:
         run_lm_checks(lm_state, record)
         del lm_state
         torch.cuda.empty_cache()
-    if set("2345678") <= set(args.phases):
+    if "t" in args.phases:
+        if "8" not in args.phases:
+            del pts_p, pts_k
+        torch.cuda.empty_cache()
+        for layers in (TRAIN_LAYERS, TRAIN_LAYERS_CUT):
+            _build.reset_launches()
+            train_state = run_train(layers, record)
+            count_launches("train")
+            check_train_launches(train_state)
+            peak = train_state["rec"]["peak_memory_gib"]
+            if peak <= TRAIN_PEAK_LIMIT_GIB:
+                break
+            log(f"[train] peak {peak:.2f} GiB at {layers} layers passes "
+                f"{TRAIN_PEAK_LIMIT_GIB} GiB: the depth is cut to {TRAIN_LAYERS_CUT}")
+            del train_state
+            torch.cuda.empty_cache()
+        record["train"]["layers"] = layers
+        run_train_checks(train_state, record)
+        del train_state
+        torch.cuda.empty_cache()
+    if set("2345678t") <= set(args.phases):
         missing = [name for name, count in launches.items() if count == 0]
         require(not missing, f"kernels never launched on the main path: {missing}")
     record["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("dense_matmat", "lowrank_matmat", "block_cholesky", "block_cholesky_solve",
            "aca", "morton", "recompress", "trsm_panels", "schur_dense",
-           "hattention_nearfield")
+           "hattention_nearfield", "hattention_nearfield_bwd")
 
 LAUNCHES: dict[str, int] = {
     "batched_kernel_matvec": 0,
@@ -41,6 +41,7 @@ LAUNCHES: dict[str, int] = {
     "batched_trsm_panels": 0,
     "batched_schur_dense": 0,
     "hattention_nearfield": 0,
+    "hattention_nearfield_bwd": 0,
 }
 
 # calls of a documented plain route of the reference that a wrapper takes on

@@ -12,7 +12,8 @@ factors.  Keys of ``arrays`` (``{l}`` is a tree level):
     and, for a precomputed H-matrix, U/{l} (B_l, m, k), V/{l} (B_l, m, k) f32.
 
 ``lm_params_from_arrays``: the port's ``LM`` from ``repro``'s LM parameter
-pytree (``repro.models.lm.init_params``) as NumPy arrays.
+pytree (``repro.models.lm.init_params``) as NumPy arrays;
+``train_state_from_arrays``: the port's train state from ``repro``'s.
 """
 from __future__ import annotations
 
@@ -112,3 +113,16 @@ def lm_params_from_arrays(arrays: dict, cfg, *, device) -> LM:
     layers += [_block(tree, t) for tree in arrays["tail"]]
     head = None if cfg.tie_embeddings else t(arrays["lm_head"])
     return LM(cfg, t(arrays["embed"]), _norm(arrays["final_norm"], t), head, layers)
+
+
+def train_state_from_arrays(arrays: dict, cfg, *, device) -> dict:
+    """The port's train state from ``repro``'s ``{"step", "params", "opt":
+    {"m", "v"[, "err"]}}`` with every leaf a NumPy array: the parameters
+    through :func:`lm_params_from_arrays`, each optimizer moment keyed by
+    the port's parameter names (float32, as ``repro`` keeps them)."""
+    def by_name(tree):
+        return {name: p.detach() for name, p in
+                lm_params_from_arrays(tree, cfg, device=device).named_parameters()}
+    return {"step": int(np.asarray(arrays["step"])),
+            "params": lm_params_from_arrays(arrays["params"], cfg, device=device),
+            "opt": {key: by_name(tree) for key, tree in arrays["opt"].items()}}

@@ -6,7 +6,8 @@ cluster tree (clusters are contiguous position ranges):
 
   * inadmissible leaves: diagonal (i, i) (causal-masked) and first
     sub-diagonal (i, i-1) blocks -> exact, batched dense attention, through
-    the near-field kernel (``kernels/hattention_block``);
+    the near-field kernel and its backward (``kernels/hattention_block``:
+    ``NearField``, kernels #11 and #11b);
   * admissible blocks: at every level, (i, i-2) for every i and (i, i-3) for
     odd i -> rank-k ACA on exp(s - m_row), with the entries generated from
     q-row / k-column inner products.
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from .._device import require_full_fp32
-from ..kernels.hattention_block.ops import hattention_nearfield_op
+from ..kernels.hattention_block.ops import NearField
 
 CLAMP = 30.0
 
@@ -94,8 +95,10 @@ def _scatter_passes(rows: tuple) -> list[list[int]]:
 
 
 def _masked_argmax(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """First index of the max of ``|x|`` over ``mask`` (float 0/1), per row."""
-    return torch.argmax(x.abs() * mask - (1.0 - mask), dim=-1)
+    """First index of the max of ``|x|`` over ``mask`` (float 0/1), per row.
+    A pivot carries no gradient (JAX's argmax has none), so ``x`` is read
+    detached."""
+    return torch.argmax(x.detach().abs() * mask - (1.0 - mask), dim=-1)
 
 
 def aca_bilinear(q_rows: torch.Tensor, m_rows: torch.Tensor, k_cols: torch.Tensor,
@@ -105,6 +108,11 @@ def aca_bilinear(q_rows: torch.Tensor, m_rows: torch.Tensor, k_cols: torch.Tenso
     q_rows: (..., R, D) pre-scaled; m_rows: (..., R); k_cols: (..., C, D);
     the leading dimensions are independent blocks (``repro``'s
     ``vmap(vmap(aca_bilinear))``).  Returns U: (..., R, rank), V: (..., C, rank).
+    Differentiable, as ``repro``'s ``lax.scan`` is: while autograd records,
+    step r's columns join U and V out of place (``torch.where`` on column r,
+    the values the in-place write gives otherwise), so no tensor autograd
+    saved is overwritten; without a graph (serving) they are written in
+    place, which costs the prefill less.
     """
     lead = q_rows.shape[:-2]
     R, d = q_rows.shape[-2:]
@@ -115,6 +123,9 @@ def aca_bilinear(q_rows: torch.Tensor, m_rows: torch.Tensor, k_cols: torch.Tenso
     n = q.shape[0]
     dev, f32 = q.device, torch.float32
     nidx = torch.arange(n, device=dev)
+    col = torch.arange(rank, device=dev)
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q_rows, m_rows, k_cols))
 
     U = torch.zeros((n, R, rank), dtype=f32, device=dev)
     V = torch.zeros((n, C, rank), dtype=f32, device=dev)
@@ -139,8 +150,12 @@ def aca_bilinear(q_rows: torch.Tensor, m_rows: torch.Tensor, k_cols: torch.Tenso
         row_mask[nidx, i_r] = 0.0
         col_mask[nidx, j_r] = 0.0
         j_r = _masked_argmax(v_r, col_mask)
-        U[:, :, r] = u_r
-        V[:, :, r] = v_r
+        if recording:
+            U = torch.where(col == r, u_r[:, :, None], U)
+            V = torch.where(col == r, v_r[:, :, None], V)
+        else:
+            U[:, :, r] = u_r
+            V[:, :, r] = v_r
     return U.reshape(*lead, R, rank), V.reshape(*lead, C, rank)
 
 
@@ -179,8 +194,12 @@ def h_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c_leaf: in
     """Causal H-matrix attention.
 
     q: (B, S, H, D); k, v: (B, S, Hkv, D) -> (B, S, H, D) in q's dtype.  The
-    near field runs through ``hattention_nearfield_op`` (the CUDA kernel for
-    CUDA tensors), the far field as batched ACA per level in PyTorch.
+    near field runs through ``NearField`` (kernels #11 and #11b for CUDA
+    tensors), the far field as batched ACA per level in PyTorch; both are
+    differentiable.  The far field's sums are added into num and den pass by
+    pass, in the fixed order of ``_scatter_passes``: out of place
+    (``index_copy``) while autograd records, so the near field's saved
+    outputs are never overwritten, in place otherwise (the same bits).
     Raises for CUDA operands while TF32 is enabled for float32 matmuls.
     """
     require_full_fp32("h_attention", q.device)
@@ -190,9 +209,10 @@ def h_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c_leaf: in
     plan = causal_hmatrix_plan(s, c_leaf)
     qf, kf, vf, ql, kl, vl = leaf_blocks(q, k, v, c_leaf)
     bh = qf.shape[0]
+    recording = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
 
     # ---- dense near field: (i, i) causal + (i, i-1) full ------------------
-    num, den, m = hattention_nearfield_op(ql, kl, vl)
+    num, den, m = NearField.apply(ql, kl, vl)
     m_flat = m.reshape(bh, s)
     num = num.reshape(bh, s, d)
     den = den.reshape(bh, s)
@@ -219,8 +239,14 @@ def h_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c_leaf: in
         for blocks in _scatter_passes(rows):
             sel = torch.tensor(blocks, device=q.device)
             dst = r_ids[sel]
-            num_cl[:, dst] = num_cl[:, dst] + num_blk[:, sel]
-            den_cl[:, dst] = den_cl[:, dst] + den_blk[:, sel]
+            if recording:
+                num_cl = num_cl.index_copy(1, dst, num_cl[:, dst] + num_blk[:, sel])
+                den_cl = den_cl.index_copy(1, dst, den_cl[:, dst] + den_blk[:, sel])
+            else:
+                num_cl[:, dst] = num_cl[:, dst] + num_blk[:, sel]
+                den_cl[:, dst] = den_cl[:, dst] + den_blk[:, sel]
+        num = num_cl.view(bh, s, d)
+        den = den_cl.view(bh, s)
 
     out = num / torch.clamp(den, min=1e-30)[..., None]                # (BH,S,D)
     out = out.reshape(b, hkv, g, s, d).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)

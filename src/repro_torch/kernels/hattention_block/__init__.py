@@ -1,1 +1,2 @@
-"""H-attention near field (causal leaf blocks): CUDA kernel, dispatch, plain version."""
+"""H-attention near field (causal leaf blocks) and its backward: CUDA kernels,
+dispatch, plain versions."""

@@ -2,6 +2,8 @@
 
 Replaces ``repro/kernels/hattention_block/kernel.py``: ``hattention_nearfield``,
 the dense near field of H-matrix attention (``core/hattention.h_attention``).
+Its backward (``csrc/hattention_nearfield_bwd.cu``, #11b) replaces no TPU
+kernel: ``repro`` differentiates its einsum near field with ``jax.grad``.
 """
 from __future__ import annotations
 
@@ -41,3 +43,40 @@ def hattention_nearfield_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     _build.check(err, what)
     _build.LAUNCHES[what] += 1
     return num, den, m
+
+
+def hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm):
+    """Kernel #11b, the backward of #11 (``csrc/hattention_nearfield_bwd.cu``).
+
+    q, k, v, num, gnum: (BH, n_leaf, c, D); den, m, gden, gm: (BH, n_leaf,
+    c); float32 CUDA, contiguous; ``num``, ``den`` and ``m`` as #11 computed
+    them from these q, k, v (the kernel finds each row's arg-max by
+    ``s == m``, recomputing the scores in #11's order).  Returns dq, dk, dv
+    (BH, n_leaf, c, D).  One count a call (three CUDA launches: dq, the
+    rows whose max ties, dk and dv).
+    """
+    what = "hattention_nearfield_bwd"
+    require_cuda_f32(what, q, k, v, num, den, m, gnum, gden, gm)
+    if q.ndim != 4 or any(t.shape != q.shape for t in (k, v, num, gnum)) or \
+            any(t.shape != q.shape[:3] for t in (den, m, gden, gm)):
+        raise ValueError(f"{what}: q, k, v, num, gnum must be (BH, n_leaf, c, D) and den, m, "
+                         f"gden, gm (BH, n_leaf, c); got q {tuple(q.shape)}")
+    bh, nl, c, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: the kernel takes head dims {HEAD_DIMS}, got {d}")
+    if bh * nl * -(-c // 64) > 2 ** 31 - 1:
+        raise ValueError(f"{what}: {bh} x {nl} leaves of {c} rows exceed the kernel's grid")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    if bh == 0 or nl == 0 or c == 0:
+        return dq, dk, dv
+    scratch = q.new_empty((3, bh, nl, c))
+    ties = torch.empty((bh, nl, c), dtype=torch.int32, device=q.device)
+    fn = _build.c_function("hattention_nearfield_bwd", "repro_hattention_nearfield_bwd",
+                           [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(*(t.data_ptr() for t in (q, k, v, num, den, m, gnum, gden, gm, dq, dk, dv,
+                                         scratch, ties)),
+                 bh, nl, c, d, stream_handle(q.device))
+    _build.check(err, what)
+    _build.LAUNCHES[what] += 1
+    return dq, dk, dv

@@ -7,7 +7,7 @@ functions take those modules the way ``repro``'s take the pytrees.
 
 Attention paths:
   * ``chunked_attention`` — flash-style online-softmax loop over KV chunks
-    (the forward of ``repro``'s; prompts up to ``h_c_leaf`` and backend
+    with ``repro``'s custom VJP (prompts up to ``h_c_leaf`` and backend
     ``full``);
   * ``core.hattention.h_attention`` — backend ``hmatrix`` beyond ``h_c_leaf``;
   * ``decode_attention`` — single-token attention over the KV cache.
@@ -154,18 +154,12 @@ def _mask_bias(q_pos, k_pos, causal: bool, window: int):
     return torch.where(mask, zero, torch.full_like(zero, NEG_INF))
 
 
-def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                      chunk: int = 1024, q_offset: int = 0):
-    """Flash-style attention: a loop over KV chunks with online softmax
-    (the forward of ``repro``'s; its custom VJP waits for training).
-
-    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D).  Returns (B, Sq, H, D).
-    """
+def _flash_fwd(q, k, v, causal: bool, window: int, chunk: int, q_offset: int):
+    """The online-softmax loop over KV chunks (``repro``'s ``_flash_fwd_scan``).
+    Returns out (B, Hkv, G, Sq, D) float32 and the softmax stats (m, l);
+    differentiable by autograd (the plain route ``_FlashAttention`` replaces)."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    chunk = min(chunk, sk)
-    if sk % chunk != 0:
-        raise ValueError(f"chunked_attention: {sk} keys do not split into chunks of {chunk}")
     g = h // hkv
     scale = 1.0 / math.sqrt(d)
     qg = _gqa_split(q, hkv).float() * scale                   # (B,Sq,Hkv,G,D)
@@ -186,7 +180,73 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
         acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v_blk)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    return out, m, l
+
+
+def _flash_bwd(q, k, v, out, m, l, grad, causal: bool, window: int, chunk: int,
+               q_offset: int):
+    """``repro``'s ``_flash_bwd``: the scores are recomputed per KV chunk
+    from the saved (m, l, out), so no (Sq, Sk) probability tensor is kept."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qg = _gqa_split(q, hkv).float() * scale                   # (B,Sq,Hkv,G,D)
+    gg = _gqa_split(grad, hkv).float().permute(0, 2, 3, 1, 4)  # (B,Hkv,G,Sq,D)
+    l_safe = torch.clamp(l, min=1e-30)
+    dsum = torch.sum(gg * out, dim=-1)                        # (B,Hkv,G,Sq)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    dq = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for ci in range(sk // chunk):
+        k_blk = k[:, ci * chunk:(ci + 1) * chunk].float()
+        v_blk = v[:, ci * chunk:(ci + 1) * chunk].float()
+        k_pos = ci * chunk + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_blk)
+        s = s + _mask_bias(q_pos, k_pos, causal, window)[None, None, None]
+        p = torch.exp(s - m[..., None]) / l_safe[..., None]   # normalised probs
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", gg, v_blk)
+        ds = p * (dp - dsum[..., None])
+        dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, gg))
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qg))
+        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, k_blk)
+    dq = (dq * scale).reshape(b, sq, h, d).to(q.dtype)
+    dk = torch.cat(dks, dim=1).to(k.dtype)
+    dv = torch.cat(dvs, dim=1).to(v.dtype)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``repro``'s ``_flash_attention`` custom VJP: forward ``_flash_fwd``,
+    backward ``_flash_bwd`` from the saved (q, k, v, out, m, l)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, q_offset):
+        out, m, l = _flash_fwd(q, k, v, causal, window, chunk, q_offset)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.opts = (causal, window, chunk, q_offset)
+        b, sq, h, d = q.shape
+        return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, grad, *ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      chunk: int = 1024, q_offset: int = 0):
+    """Flash-style attention: a loop over KV chunks with online softmax and
+    ``repro``'s custom VJP, which recomputes the scores per chunk in the
+    backward pass (``_FlashAttention``).
+
+    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D).  Returns (B, Sq, H, D).
+    """
+    sk = k.shape[1]
+    chunk = min(chunk, sk)
+    if sk % chunk != 0:
+        raise ValueError(f"chunked_attention: {sk} keys do not split into chunks of {chunk}")
+    return _FlashAttention.apply(q, k, v, causal, window, chunk, q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len: int):

@@ -7,9 +7,11 @@ port keeps one ``Block`` per layer in an ``nn.ModuleList`` and loops over
 them, in the same order.  Caches are a list with one ``(k, v)`` per layer,
 each (B, S, Hkv, D).
 
-mode: "train" (logits at every position), "prefill" (the logits of the
-last position only, and the caches), "decode" (one token, updates the
-caches in place).
+mode: "train" (logits at every position; with ``remat=True`` each block
+runs under ``torch.utils.checkpoint``, as ``repro``'s ``jax.checkpoint``
+per block), "prefill" (the logits of the last position only, and the
+caches), "decode" (one token, updates the caches in place).
+``cross_entropy_loss`` is the training loss.
 
 Only the ``dense`` block kind is ported; ``moe``, ``mamba``, ``mlstm``,
 ``slstm`` and ``shared_attn`` raise ``NotImplementedError``.
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (Attention, MLP, Norm, apply_norm, attention_block, embed_init,
                      embed_tokens, lm_head, make_attention_params, make_mlp_params,
@@ -55,8 +58,10 @@ class LM(nn.Module):
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, tokens, *, mode: str = "train", caches=None, cache_len=None):
-        return forward(self, self.cfg, tokens, mode=mode, caches=caches, cache_len=cache_len)
+    def forward(self, tokens, *, mode: str = "train", caches=None, cache_len=None,
+                remat: bool = False):
+        return forward(self, self.cfg, tokens, mode=mode, caches=caches, cache_len=cache_len,
+                       remat=remat)
 
 
 # ---------------------------------------------------------------------------
@@ -125,13 +130,16 @@ def init_caches(cfg, batch: int, max_seq: int, *, device) -> list:
 # ---------------------------------------------------------------------------
 
 
-def forward(params: LM, cfg, tokens, *, mode: str = "train", caches=None, cache_len=None):
+def forward(params: LM, cfg, tokens, *, mode: str = "train", caches=None, cache_len=None,
+            remat: bool = False):
     """Returns (logits, new_caches).
 
     tokens: (B, S) integer ids.  For decode, S == 1 and ``caches`` /
     ``cache_len`` (a Python int, the number of filled slots) are given.
     Prefill applies the final norm and the LM head to the last position only
     (all ``repro``'s prefill step keeps), so its logits are (B, 1, V).
+    ``remat`` (train mode only): each block keeps only its input for the
+    backward pass and runs again there (non-reentrant checkpointing).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -145,8 +153,12 @@ def forward(params: LM, cfg, tokens, *, mode: str = "train", caches=None, cache_
     new_caches = []
     for i, (block, kind) in enumerate(zip(params.layers, cfg.layer_kinds)):
         cache = caches[i] if caches is not None else None
-        x, nc = apply_block(block, cfg, kind, x, mode=mode, cache=cache,
-                            cache_len=cache_len, positions=positions)
+        if remat and mode == "train":
+            x, nc = checkpoint(apply_block, block, cfg, kind, x, mode=mode, cache=None,
+                               cache_len=cache_len, positions=positions, use_reentrant=False)
+        else:
+            x, nc = apply_block(block, cfg, kind, x, mode=mode, cache=cache,
+                                cache_len=cache_len, positions=positions)
         new_caches.append(nc)
 
     if mode == "prefill":
@@ -155,3 +167,20 @@ def forward(params: LM, cfg, tokens, *, mode: str = "train", caches=None, cache_
     w = params.embed if cfg.tie_embeddings else params.lm_head
     logits = lm_head(x, w, cfg.tie_embeddings)
     return logits, (new_caches if mode in ("prefill", "decode") else None)
+
+
+def cross_entropy_loss(logits, labels, vocab_size: int):
+    """Mean next-token cross entropy in float32; labels outside ``[0,
+    vocab_size)`` (the -1 closing each sequence, padding ids) are masked.
+
+    ``repro`` picks the gold logit with a compare-select-sum over the vocab;
+    exactly one term of that sum is nonzero, so the gather here gives the
+    same bits without a (B, S, V) one-hot.
+    """
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    mask = (labels >= 0) & (labels < vocab_size)
+    idx = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    gold = torch.gather(lf, -1, idx[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

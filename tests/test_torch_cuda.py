@@ -18,9 +18,12 @@ the plain QR + SVD) by equal ranks or a reconstruction error within
 rank-deficient and decaying blocks at k in {1, 7, 16, 64}), the
 H-attention near field by ``m`` within 1e-5 absolute and ``num``, ``den``
 within 1e-4 relative (the JAX test's limits; also with a row max that
-rises in later key tiles), and the LM's prefill through the kernel against
-the same prefill through the plain version on the card within 1e-4
-relative.
+rises in later key tiles), its backward #11b against the plain derivative
+within 1e-4 relative per gradient (also with maxima tied inside a leaf and
+across its two blocks), ``h_attention``'s gradient through #11 / #11b
+against the plain route within 1e-3 (ACA pivots are on the path), and the
+LM's prefill through the kernel against the same prefill through the plain
+version on the card within 1e-4 relative.
 The ACA's two routes (resident, at every cluster size that fits, and
 streamed) must give the same bits, the dense leaves' level entry the
 gathered entry's bits, and the low-rank level entry the bits of the
@@ -700,13 +703,106 @@ def test_hattention_nearfield_online_rescaling_on_card(cuda_device, c, d, nl):
     assert all(torch.equal(a, b) for a, b in zip(again, (num, den, m)))
 
 
+def _nearfield_bwd_case(device, bh, nl, c, d, seed, ties: bool):
+    """q, k, v for #11b, and random cotangents; with ``ties``, rows whose max
+    is attained by several keys: key 5 of every leaf a copy of key 3, key 7
+    of leaf n - 1 a copy of leaf n's key 3, and rows 9, 40 and c - 1 of
+    every leaf aligned with key 3 (so that it is their max), in leaf 0
+    without a previous block."""
+    rng = _rs(seed)
+    q = rng.randn(bh, nl, c, d) / np.sqrt(d)
+    k = rng.randn(bh, nl, c, d)
+    v = rng.randn(bh, nl, c, d)
+    if ties:
+        k[:, :, 5] = k[:, :, 3]
+        k[:, :-1, 7] = k[:, 1:, 3]
+        for r in (9, 40, c - 1):
+            q[:, :, r] = k[:, :, 3] / np.sqrt(d)
+    g = [rng.randn(bh, nl, c, d), rng.randn(bh, nl, c), rng.randn(bh, nl, c)]
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in (q, k, v, *g)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,nl,c,d,ties", [(2, 4, 64, 32, False), (3, 3, 100, 32, True),
+                                            (2, 2, 96, 64, True), (4, 3, 512, 128, True),
+                                            (40, 2, 512, 128, False), (2, 3, 100, 16, True),
+                                            (1, 1, 33, 16, False)])
+def test_hattention_nearfield_bwd_kernel_matches_plain_on_card(cuda_device, bh, nl, c, d, ties):
+    """#11b against the plain derivative on the card, from #11's (num, den,
+    m), within 1e-4 relative per gradient; with tied maxima inside a leaf
+    and across the two blocks (the cotangent of m split as JAX splits it);
+    two launches bit-identical."""
+    from repro_torch.kernels.hattention_block.kernel import (hattention_nearfield_bwd_cuda,
+                                                             hattention_nearfield_cuda)
+    from repro_torch.kernels.hattention_block.ref import hattention_nearfield_bwd_ref
+    q, k, v, gnum, gden, gm = _nearfield_bwd_case(cuda_device, bh, nl, c, d, c + d, ties)
+    num, den, m = hattention_nearfield_cuda(q, k, v)
+    before = _build.LAUNCHES["hattention_nearfield_bwd"]
+    got = hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm)
+    assert _build.LAUNCHES["hattention_nearfield_bwd"] == before + 1
+    want = hattention_nearfield_bwd_ref(q, k, v, num, den, m, gnum, gden, gm)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+    if ties:
+        # the case is there: row 9's max in its own leaf is attained by keys 3 and 5
+        s = torch.einsum("bncd,bnkd->bnck", q, k)[:, :, 9, :10]
+        assert torch.equal(s[..., 3], s[..., 5]) and torch.equal(s[..., 3], s.amax(-1))
+    again = hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))          # no atomics
+
+
+def _plain_nearfield(monkeypatch):
+    from repro_torch.kernels.hattention_block import ops as nearfield_ops
+    from repro_torch.kernels.hattention_block.ref import (hattention_nearfield_bwd_ref,
+                                                          hattention_nearfield_ref)
+    monkeypatch.setattr(nearfield_ops, "hattention_nearfield_op", hattention_nearfield_ref)
+    monkeypatch.setattr(nearfield_ops, "hattention_nearfield_bwd_op",
+                        hattention_nearfield_bwd_ref)
+
+
+def _h_attention_grads(q, k, v, w, c_leaf, rank):
+    from repro_torch.core.hattention import h_attention
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (h_attention(*leaves, c_leaf=c_leaf, rank=rank) * w).sum().backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+def test_h_attention_grad_on_card_matches_the_plain_route(cuda_device, monkeypatch):
+    """dq, dk, dv of h_attention through #11 and #11b against the same
+    gradient through the plain near field and its plain backward on the
+    card (1e-3 relative: ACA pivots sit on the path, and m differs by
+    rounding between the routes), on smooth inputs at c_leaf 256, 8 leaves;
+    two backward passes through the kernels bit-identical."""
+    b, s, h, hkv, d = 1, 2048, 4, 2, 64
+    t = np.linspace(0, 4 * np.pi, s)
+    feats = np.stack([np.sin(t * (i + 1) / d) for i in range(d)], -1)
+    rng = _rs(21)
+    q = np.tile(feats[None, :, None, :], (b, 1, h, 1)) * 2.0 + 0.01 * rng.randn(b, s, h, d)
+    k = np.tile(feats[None, :, None, :], (b, 1, hkv, 1)) * 2.0 + 0.01 * rng.randn(b, s, hkv, d)
+    v = rng.randn(b, s, hkv, d)
+    w = rng.randn(b, s, h, d)
+    q, k, v, w = (torch.from_numpy(a.astype(np.float32)).to(cuda_device) for a in (q, k, v, w))
+    before = dict(_build.LAUNCHES)
+    got = _h_attention_grads(q, k, v, w, 256, 8)
+    assert _build.LAUNCHES["hattention_nearfield"] == before["hattention_nearfield"] + 1
+    assert _build.LAUNCHES["hattention_nearfield_bwd"] == before["hattention_nearfield_bwd"] + 1
+    again = _h_attention_grads(q, k, v, w, 256, 8)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    with monkeypatch.context() as mp:
+        _plain_nearfield(mp)
+        want = _h_attention_grads(q, k, v, w, 256, 8)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(a, b) <= 1e-3, (name, _rel(a, b))
+
+
 @pytest.mark.cuda
 def test_lm_prefill_on_card_matches_the_plain_route(cuda_device, monkeypatch):
     """The smoke hmatrix LM's prefill through kernel #11 against the same
     prefill with the near field forced to its plain version on the card,
     and a greedy decode through both."""
     from repro_torch.configs.registry import get_smoke
-    from repro_torch.core import hattention
+    from repro_torch.kernels.hattention_block import ops as nearfield_ops
     from repro_torch.kernels.hattention_block.ref import hattention_nearfield_ref
     from repro_torch.launch.serve import generate
     from repro_torch.models.api import get_model
@@ -718,7 +814,7 @@ def test_lm_prefill_on_card_matches_the_plain_route(cuda_device, monkeypatch):
     _build.reset_launches()
     out = generate(params, cfg, prompts, 4)
     assert _build.LAUNCHES["hattention_nearfield"] == cfg.n_layers
-    monkeypatch.setattr(hattention, "hattention_nearfield_op", hattention_nearfield_ref)
+    monkeypatch.setattr(nearfield_ops, "hattention_nearfield_op", hattention_nearfield_ref)
     plain = generate(params, cfg, prompts, 4)
     assert _rel(out["prefill_logits"], plain["prefill_logits"]) <= 1e-4
     assert torch.equal(out["tokens"], plain["tokens"])
