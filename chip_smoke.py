@@ -17,9 +17,12 @@ Phases (any failure ends the run with a non-zero exit code):
      launch width the wrapper can pick, on H-LU's batch sizes; the
      H-attention near field at the serving shape (80, 16, 512, 128) and at
      one prefill_32k layer (40, 64, 512, 128); its backward #11b from #11's
-     outputs at the training shape (40, 8, 512, 128), at the serving shape
-     and with tied row maxima, against the plain derivative, timed beside
-     autograd through SDPA on the same band), with times
+     outputs at the training shape (40, 8, 512, 128), at the serving shape,
+     with tied row maxima, with near-tie rows (a key two ulps below the
+     row's max) and with scores up to about +-30, against the plain
+     derivative, timed beside autograd through SDPA on the same band, its
+     registers, spills, shared bytes and CTAs an SM, and the tensor-core
+     instructions in its SASS), with times
      of kernel, plain version and the PyTorch library call that computes the
      same function (the ACA also on all level groups of P, as one build runs
      it, with the route each group took; its two routes, resident at every
@@ -1330,6 +1333,13 @@ def check_nearfield(record):
 # microbatches of one sequence: 40 heads, 8 leaves) and the serving shape
 NEARFIELD_BWD_SHAPES = {"train": (40, 8, 512, 128), "serve": (80, 16, 512, 128)}
 NEARFIELD_BWD_REL_LIMIT = 1e-4
+# the phase-1 cases: (shape, inputs)
+NEARFIELD_BWD_CASES = (("train", "random"), ("serve", "random"), ("train", "tied maxima"),
+                       ("train", "near-tie rows"), ("train", "large scores"))
+PEAK_TF32 = 495e12     # H100 SXM, dense TF32 on the tensor cores (data sheet)
+# #11b's products run as 3xTF32 (three tensor-core products each): its bound
+# is the operations at a third of the TF32 rate
+PEAK_3XTF32 = PEAK_TF32 / 3
 
 
 def nearfield_bwd_work(bh: int, nl: int, c: int, d: int) -> tuple[float, float]:
@@ -1342,25 +1352,94 @@ def nearfield_bwd_work(bh: int, nl: int, c: int, d: int) -> tuple[float, float]:
     return nbytes, 10.0 * d * pairs
 
 
-def nearfield_bwd_inputs(shape, gen, ties: bool):
-    """q, k, v as check_nearfield draws them and random cotangents; with
-    ``ties``, rows whose max is attained by several keys (key 5 of every
-    leaf a copy of key 3, key 7 of leaf n - 1 a copy of leaf n's key 3, and
-    rows 9, 40 and c - 1 of every leaf aligned with key 3), leaf 0 without
-    a previous block among them."""
+def nearfield_bwd_inputs(shape, gen, kind: str = "random"):
+    """q, k, v as check_nearfield draws them and random cotangents.
+    ``tied maxima``: rows whose max is attained by several keys (key 5 of
+    every leaf a copy of key 3, key 7 of leaf n - 1 a copy of leaf n's key
+    3, and rows 9, 40 and c - 1 of every leaf aligned with key 3), leaf 0
+    without a previous block among them.  ``near-tie rows``: rows 9, 40 and
+    c - 1 are 2 e_0 and key 3 is 17 e_0 (their max, 34), key 5 is key 3
+    times (1 - 2^-22): its score lies two ulps below m and is no tie (every
+    score of keys 3 and 5 is one rounded product, the same in any order).
+    ``large scores``: q scaled by 7.5 (scores to about +-30)."""
     bh, nl, c, d = shape
     q = torch.randn(bh, nl, c, d, generator=gen, device="cuda") / math.sqrt(d)
     k = torch.randn(bh, nl, c, d, generator=gen, device="cuda")
     v = torch.randn(bh, nl, c, d, generator=gen, device="cuda")
-    if ties:
+    if kind == "tied maxima":
         k[:, :, 5] = k[:, :, 3]
         k[:, :-1, 7] = k[:, 1:, 3]
         for r in (9, 40, c - 1):
             q[:, :, r] = k[:, :, 3] / math.sqrt(d)
+    elif kind == "near-tie rows":
+        for r in (9, 40, c - 1):
+            q[:, :, r] = 0.0
+            q[:, :, r, 0] = 2.0
+        k[:, :, 3] = 0.0
+        k[:, :, 3, 0] = 17.0
+        k[:, :, 5] = k[:, :, 3] * (1.0 - 2.0 ** -22)
+    elif kind == "large scores":
+        q *= 7.5
     gnum = torch.randn(bh, nl, c, d, generator=gen, device="cuda")
     gden = torch.randn(bh, nl, c, generator=gen, device="cuda")
     gm = torch.randn(bh, nl, c, generator=gen, device="cuda")
     return q, k, v, gnum, gden, gm
+
+
+def fma_order_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b over the last dim as #11 takes a score: one fp32 fma chain over
+    d ascending, each step rounded once.  Emulated exactly in float64: the
+    product of two floats is exact there, TwoSum keeps what rounding the sum
+    dropped, and that remainder settles the one case where rounding the
+    float64 sum to fp32 would round twice (an exact midpoint)."""
+    s = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+    inf = torch.tensor(float("inf"), device=a.device)
+    for i in range(a.shape[-1]):
+        p = a[..., i].double() * b[..., i].double()
+        c = s.double()
+        tot = p + c
+        bp = tot - c
+        rest = (p - bp) + (c - (tot - bp))
+        r = tot.float()
+        diff = tot - r.double()
+        other = torch.nextafter(r, torch.where(diff > 0, inf, -inf))
+        mid = (diff != 0) & (2.0 * diff.abs() == (other.double() - r.double()).abs())
+        s = torch.where(mid & (rest != 0) & ((rest > 0) == (diff > 0)), other, r)
+    return s
+
+
+def other_tie_set_rows(q, k, m) -> torch.Tensor:
+    """(bh, nl, c) bool: the rows whose arg-max set differs between the
+    plain derivative and #11b.  The plain version takes the entries equal
+    to their block's max in its own einsum scores (in the blocks that attain
+    the row's max); #11b the visible entries whose score in #11's fma order
+    equals #11's m.  The two orders round apart, so a row whose two largest
+    scores lie within a rounding can differ; the fma-order scores are
+    computed for the entries within 2^-10 |q| |k| of m (and the plain
+    version's set)."""
+    bh, nl, c, d = q.shape
+    ii = torch.arange(c, device=q.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None]
+    kp = torch.cat([torch.zeros_like(k[:, :1]), k[:, :-1]], dim=1)
+    s_diag = torch.einsum("bncd,bnkd->bnck", q, k)
+    s_diag = torch.where(causal, s_diag, torch.full_like(s_diag, -1e30))
+    s_prev = torch.einsum("bncd,bnkd->bnck", q, kp)
+    first = (torch.arange(nl, device=q.device) == 0)[None, :, None, None]
+    s_prev = torch.where(first, torch.full_like(s_prev, -1e30), s_prev)
+    md, ms = s_diag.amax(-1, keepdim=True), s_prev.amax(-1, keepdim=True)
+    mm = torch.maximum(md, ms)
+    plain_set = torch.cat([(s_prev == ms) & (ms == mm), (s_diag == md) & (md == mm)], -1)
+    vis = torch.cat([~first.expand(bh, nl, c, c), causal.expand(bh, nl, c, c)], -1)
+    keys = torch.cat([kp, k], 2)
+    scale = torch.linalg.vector_norm(q, dim=-1)[..., None] * \
+        torch.linalg.vector_norm(keys, dim=-1)[..., None, :]
+    near = vis & (torch.cat([s_prev, s_diag], -1) >= m[..., None] - 2.0 ** -10 * scale)
+    del s_diag, s_prev, scale
+    at = (near | plain_set).nonzero(as_tuple=True)
+    kernel_set = torch.zeros_like(plain_set)
+    kernel_set[at] = vis[at] & (fma_order_dots(q[at[:3]], keys[at[0], at[1], at[3]])
+                                == m[at[:3]])
+    return (kernel_set != plain_set).any(-1)
 
 
 def sdpa_band_backward(q, k, v, gout):
@@ -1372,46 +1451,109 @@ def sdpa_band_backward(q, k, v, gout):
     return lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True)
 
 
+def sass_opcodes(lib: str, kernel: str, prefix: str = "HMMA") -> dict:
+    """Counts of the SASS instructions starting with ``prefix`` in the
+    function of ``lib`` whose (mangled) name holds ``kernel``
+    (``cuobjdump -sass``)."""
+    import re
+    from repro_torch import _build
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", lib], check=True, capture_output=True,
+                          text=True).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", sass) if kernel in f.split("\n")[0])
+    counts: dict = {}
+    for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(" + prefix + r"[\w.]*)", body):
+        counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def nearfield_bwd_resources(rec) -> None:
+    """#11b's registers, spills, shared bytes and CTAs an SM at every head
+    dim (the C side's occupancy query), and the tensor-core instructions of
+    its dq and dk/dv kernels at D = 128 in the built library's SASS."""
+    from repro_torch import _build
+    from repro_torch.kernels.hattention_block.kernel import (HEAD_DIMS,
+                                                             hattention_nearfield_bwd_info)
+    rec["resources"] = {str(d): hattention_nearfield_bwd_info(d) for d in HEAD_DIMS}
+    lib = str(Path(_build.BUILD_INFO["dir"]) / "libhattention_nearfield_bwd.so")
+    rec["sass_mma_D128"] = {name: sass_opcodes(lib, f"{name}_kernelILi128E")
+                            for name in ("dq", "dkv")}
+    for d, row in rec["resources"].items():
+        log(f"[1] hattention_nearfield_bwd D = {d}: " + "; ".join(
+            f"{name} {r['registers']} registers, {r['spill_bytes']} B spilled, "
+            f"{r['shared_bytes']} B shared, {r['ctas_per_sm']} CTAs an SM"
+            for name, r in row.items()))
+    log(f"[1] hattention_nearfield_bwd SASS at D = 128: {rec['sass_mma_D128']}")
+    require(all(any(k.startswith("HMMA") for k in ops) for ops in rec["sass_mma_D128"].values()),
+            f"hattention_nearfield_bwd: no tensor-core instruction in {rec['sass_mma_D128']}")
+
+
 def check_nearfield_bwd(record):
     """#11b against its plain derivative on the card, from #11's (num, den,
-    m): at the training shape, at the serving shape and with tied maxima at
-    the training shape (every shape holds leaf 0, which has no previous
-    block); two launches bit-identical; kernel, plain and SDPA-backward
-    times at the training shape, the kernel's also at the serving shape."""
+    m): at the training shape, at the serving shape, and at the training
+    shape with tied maxima, near-tie rows and large scores (every shape
+    holds leaf 0, which has no previous block); two launches bit-identical;
+    kernel, plain and SDPA-backward times at the training shape, the
+    kernel's also at the serving shape, beside the bound (3xTF32 on the
+    tensor cores) and the fp32 rate's; then its resources and SASS
+    (``nearfield_bwd_resources``).  The rows whose arg-max set the plain
+    version's einsum order takes otherwise than #11's fma order
+    (``other_tie_set_rows``) are counted and left out of the comparison:
+    their cotangents are zeroed, so that they add nothing to dq, dk, dv on
+    either side; the rows the tie cases build are never among them."""
     from repro_torch.kernels.hattention_block.kernel import (hattention_nearfield_bwd_cuda,
                                                              hattention_nearfield_cuda)
     from repro_torch.kernels.hattention_block.ref import hattention_nearfield_bwd_ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     rec = record.setdefault("hattention_nearfield_bwd", {"checks": []})
-    cases = [("train", False), ("serve", False), ("train", True)]
-    for label, ties in cases:
+    for label, kind in NEARFIELD_BWD_CASES:
         shape = NEARFIELD_BWD_SHAPES[label]
-        q, k, v, gnum, gden, gm = nearfield_bwd_inputs(shape, gen, ties)
+        q, k, v, gnum, gden, gm = nearfield_bwd_inputs(shape, gen, kind)
         num, den, m = hattention_nearfield_cuda(q, k, v)
+        other = other_tie_set_rows(q, k, m)
+        gnum[other], gden[other], gm[other] = 0.0, 0.0, 0.0
+        ch = {"inputs": f"{label}, {kind}", "shape": list(shape),
+              "rows_with_another_tie_set": int(other.sum())}
+        if kind in ("tied maxima", "near-tie rows"):
+            built = other[:, :, [9, 40, shape[2] - 1]]
+            require(not bool(built.any()), f"hattention_nearfield_bwd {kind}: a built row's "
+                    "arg-max set differs between the plain version and #11")
+        del other
         got = hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm)
         want = hattention_nearfield_bwd_ref(q, k, v, num, den, m, gnum, gden, gm)
         torch.cuda.synchronize()
-        ch = {"inputs": f"{label}{', tied maxima' if ties else ''}", "shape": list(shape)}
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             ch[f"{name}_rel_err"] = rel_err(a, b)
         ch["max_abs_err"] = max(max_abs(a, b) for a, b in zip(got, want))
         del want
+        if kind == "near-tie rows":
+            s9 = torch.einsum("bnd,bnkd->bnk", q[:, :, 9], k[:, :, :10])
+            ch["near_tie_present"] = bool((s9[..., 3] == m[:, :, 9]).all()
+                                          and (s9[..., 5] < s9[..., 3]).all()
+                                          and (s9[..., 5] >= s9[..., 3] - 2.0 ** -16).all())
+            require(ch["near_tie_present"], "hattention_nearfield_bwd: no near-tie rows")
+        if kind == "large scores":
+            ch["max_abs_score"] = float(m.abs().amax())
         again = hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm)
         ch["bit_identical"] = all(torch.equal(a, b) for a, b in zip(again, got))
         rec["checks"].append(ch)
         log(f"[1] hattention_nearfield_bwd {ch['inputs']} {shape}: dq rel err "
             f"{ch['dq_rel_err']:.3e}, dk {ch['dk_rel_err']:.3e}, dv {ch['dv_rel_err']:.3e}, "
-            f"max abs err {ch['max_abs_err']:.3e}, bit-identical {ch['bit_identical']}")
+            f"max abs err {ch['max_abs_err']:.3e}, bit-identical {ch['bit_identical']}, "
+            f"rows left out (another tie set) {ch['rows_with_another_tie_set']}"
+            + (f", largest row max {ch['max_abs_score']:.2f}" if "max_abs_score" in ch else ""))
         require(all(ch[f"{n}_rel_err"] <= NEARFIELD_BWD_REL_LIMIT for n in ("dq", "dk", "dv")),
                 f"hattention_nearfield_bwd {ch['inputs']}: {ch}")
         require(ch["bit_identical"],
                 f"hattention_nearfield_bwd {ch['inputs']}: two launches differ")
-        if not ties:
+        if kind == "random":
             nbytes, flops = nearfield_bwd_work(*shape)
-            bms, by = bound_ms(nbytes, flops)
+            bms, by = bound_ms(nbytes, flops, PEAK_3XTF32)
+            simt_ms, _ = bound_ms(nbytes, flops)
             args = (q, k, v, num, den, m, gnum, gden, gm)
             ms = gpu_ms(lambda: hattention_nearfield_bwd_cuda(*args), 5)
             rec[f"{label}_ms"], rec[f"{label}_bound_ms"] = ms, bms
+            rec[f"{label}_fp32_rate_ms"] = simt_ms
             rec[f"{label}_gflop"] = flops / 1e9
             if label == "train":
                 rec.update(ms=ms, bound_ms=bms, bound_by=by, library_ms=None,
@@ -1420,13 +1562,15 @@ def check_nearfield_bwd(record):
                            sdpa_backward_note_ms=gpu_ms(sdpa_band_backward(q, k, v, gnum), 5),
                            timed_shape=f"train {shape}")
             log(f"[1] hattention_nearfield_bwd {label} {shape}: {ms:.3f} ms, bound {bms:.3f} ms "
-                f"({by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.2f} GB)")
+                f"({by}: {flops / 1e9:.1f} GFLOP as 3xTF32 on the tensor cores, "
+                f"{nbytes / 1e9:.2f} GB); the same operations at the fp32 rate {simt_ms:.3f} ms")
         del q, k, v, gnum, gden, gm, num, den, m, got, again
         torch.cuda.empty_cache()
     rec["max_abs_err"] = max(ch["max_abs_err"] for ch in rec["checks"])
     log(f"[1] hattention_nearfield_bwd train: plain {rec['plain_ms']:.3f} ms; autograd through "
         f"SDPA on the same band (note, not a library equivalent) "
         f"{rec['sdpa_backward_note_ms']:.3f} ms")
+    nearfield_bwd_resources(rec)
 
 
 # ---------------------------------------------------------------------------

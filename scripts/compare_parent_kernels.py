@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
 """Hold this checkout's batched ACA (#3), dense-leaf product (#2), low-rank
 apply (#4), block Cholesky (#5), block-Jacobi solve (#6), Morton encode
-(#7), recompression (#8) and H-attention near field (#11) against an
-earlier checkout's, on the card: bits, ranks or values, and times.
+(#7), recompression (#8), H-attention near field (#11) and its backward
+(#11b) against an earlier checkout's, on the card: bits, ranks or values,
+and times.
 
-    python3 scripts/compare_parent_kernels.py PARENT_DIR [--kernels 2,3,4,5,6,7,8,11] [--end-to-end]
+    python3 scripts/compare_parent_kernels.py PARENT_DIR \
+        [--kernels 2,3,4,5,6,7,8,11,11b] [--end-to-end] [--train-grads]
 
 PARENT_DIR is another checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked under ``build/``).  The
 picked kernels' sources among its ``src/repro_torch/csrc/aca.cu``,
 ``dense_matmat.cu``, ``lowrank_matmat.cu``, ``block_cholesky.cu``,
-``block_cholesky_solve.cu``, ``morton.cu``, ``recompress.cu`` and
-``hattention_nearfield.cu`` are built with nvcc into
+``block_cholesky_solve.cu``, ``morton.cu``, ``recompress.cu``,
+``hattention_nearfield.cu`` and ``hattention_nearfield_bwd.cu`` are built with nvcc into
 ``build/parent_kernels/`` and called through their own C entries
 (``repro_batched_aca`` with a ``(B, m)`` residual scratch and no route;
 ``repro_dense_matmat`` on gathered blocks; ``repro_lowrank_matmat`` on
 gathered blocks with its split scratch; ``repro_block_cholesky`` with a
 ``(B, c)`` scratch; ``repro_block_cholesky_solve``, ``repro_morton_encode``,
 ``repro_batched_recompress`` and ``repro_hattention_nearfield``, whose
-signatures are this checkout's).  ``--kernels`` picks the kernels compared
-(default all eight).  On problems P (N = 2^20, c_leaf = 2048) and K (N =
-2^15 x 32, c_leaf = 256):
+signatures are this checkout's; ``repro_hattention_nearfield_bwd`` without
+this checkout's ``stash``).
+``--kernels`` picks the kernels compared (default all nine).  On problems P
+(N = 2^20, c_leaf = 2048) and K (N = 2^15 x 32, c_leaf = 256):
 
 * #3, every level group: U, V and the pivot keys of up to 8 sampled blocks
   from the parent's kernel and from this checkout's, on the picked route
@@ -46,6 +49,10 @@ signatures are this checkout's).  ``--kernels`` picks the kernels compared
 * #11, parent and this checkout in turns, at both ``NEARFIELD_SHAPES`` of
   ``chip_smoke.py`` on random q, k, v: m within 1e-5 of the parent's, num
   and den within 1e-4 (relative);
+* #11b, parent and this checkout in turns, at the training shape (40, 8,
+  512, 128) and the serving shape of ``chip_smoke.NEARFIELD_BWD_SHAPES``,
+  from this checkout's #11 outputs on random q, k, v and cotangents: dq,
+  dk and dv within 1e-5 (relative) of the parent's;
 * #4, every level group of P and K at R = 8 (the factors of a P-mode
   build): the parent's route (gather the X slices, the parent's kernel,
   ``_scatter_rows``) against this checkout's level entry, within 1e-5
@@ -74,10 +81,22 @@ signatures are this checkout's).  ``--kernels`` picks the kernels compared
   #11, K's H-LU setup (a timed ``factorize_hlu`` after a first one, with
   #8's share by CUDA events around each re-truncation) and the LM's prefill
   of 2 x 8,192 tokens (qwen2.5-14b-hmatrix, 48 layers, bf16, random
-  weights; a timed prefill after a first one); for #5 and #7, P's and K's
-  block-Jacobi setup (``make_solver`` after a first one), K's block-Jacobi
-  solve (seconds and iterations), K's H-LU setup and P's device-build plan
-  stage (``BuildReport.plan_s`` after a first build).
+  weights; a timed prefill after a first one); for #11b, cell T's train
+  step (``chip_smoke.py`` phase t: 8 layers at full width, 2 x 4,096
+  tokens in 2 microbatches with remat, AdamW; two timed steps after a
+  first one, #11b's device ms in a third under ``torch.profiler``, and the
+  losses of the first three steps again with the near field's plain
+  backward);
+  for #5 and #7, P's and K's block-Jacobi setup (``make_solver`` after a
+  first one), K's block-Jacobi solve (seconds and iterations), K's H-LU
+  setup and P's device-build plan stage (``BuildReport.plan_s`` after a
+  first build).
+
+With ``--train-grads`` (and #11b picked), parent and this checkout once each
+(one process each): cell T's step-0 gradients with the kernel's backward
+against those with the near field's plain backward: the worst parameter
+tensor's relative error, the whole gradient's, and the share of components
+whose sign differs.
 
 Device times are ``chip_smoke.gpu_ms``: CUDA events around calls enqueued
 behind a device-side sleep, so that the host's cost per call is hidden
@@ -98,13 +117,15 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
-from chip_smoke import NEARFIELD_SHAPES, gpu_ms, stream_ms  # noqa: E402
+from chip_smoke import (NEARFIELD_BWD_SHAPES, NEARFIELD_SHAPES, gpu_ms,  # noqa: E402
+                        nearfield_bwd_inputs, stream_ms)
 SEED = 0
 _OLD_ACA_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 _DENSE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 _RECOMPRESS_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                                      ctypes.c_void_p]
 _NEARFIELD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_NEARFIELD_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _OLD_LOWRANK_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SOLVE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _CHOL_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -124,6 +145,8 @@ _PARENT_ENTRIES = {
           ("splits", "recompress", "repro_recompress_splits", [ctypes.c_int, ctypes.c_int])],
     "11": [("nearfield", "hattention_nearfield", "repro_hattention_nearfield",
             _NEARFIELD_ARGTYPES)],
+    "11b": [("nearfield_bwd", "hattention_nearfield_bwd", "repro_hattention_nearfield_bwd",
+             _NEARFIELD_BWD_ARGTYPES)],
 }
 
 
@@ -595,6 +618,39 @@ def compare_nearfield(parent, label, shape, gen, rec) -> bool:
             and row["den_rel_diff"] <= 1e-4)
 
 
+def compare_nearfield_bwd(parent, label, shape, gen, rec) -> bool:
+    """#11b against the parent's, from this checkout's #11 outputs on random
+    q, k, v and cotangents: dq, dk, dv within 1e-5 (relative), times in turns."""
+    from repro_torch import _build
+    from repro_torch.kernels import stream_handle
+    from repro_torch.kernels.hattention_block.kernel import (hattention_nearfield_bwd_cuda,
+                                                             hattention_nearfield_cuda)
+    bh, nl, c, d = shape
+    q, k, v, gnum, gden, gm = nearfield_bwd_inputs(shape, gen)
+    num, den, m = hattention_nearfield_cuda(q, k, v)
+    outs = [torch.empty_like(q) for _ in range(3)]
+    scratch = q.new_empty((3, bh, nl, c))
+    ties = torch.empty((bh, nl, c), dtype=torch.int32, device=q.device)
+    ptrs = [t.data_ptr() for t in (q, k, v, num, den, m, gnum, gden, gm, *outs, scratch, ties)]
+
+    def par():
+        _build.check(parent["nearfield_bwd"](*ptrs, bh, nl, c, d, stream_handle(q.device)),
+                     "parent hattention_nearfield_bwd")
+
+    def new():
+        return hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm)
+
+    par()
+    got = new()
+    row = {"shape": list(shape)}
+    for name, a, b in zip(("dq", "dk", "dv"), got, outs):
+        row[f"{name}_rel_diff"] = rel(a, b)
+    row["parent_ms"], row["ms"] = in_turns(par, new)
+    rec[f"nearfield_bwd_{label}"] = row
+    print(f"[#11b {label}] {row}", flush=True)
+    return all(row[f"{name}_rel_diff"] <= 1e-5 for name in ("dq", "dk", "dv"))
+
+
 # One process's end-to-end measurement, run with PYTHONPATH at one
 # checkout's src/ and that checkout as the working directory (its kernels
 # build under its own build/): prints one JSON line.  For #4 and #6: P's
@@ -736,13 +792,143 @@ print(json.dumps(out))
 """
 
 
-def end_to_end(parent_dir: Path, script: str, key: str, rec) -> None:
-    """One end-to-end script, parent and this checkout in turns (parent,
-    new, new, parent), one process each."""
+# For #11b: cell T's train step (chip_smoke.py phase t's configuration).
+_TRAIN_STEP = r"""
+import json, time, torch
+from repro_torch.configs.registry import get_arch
+from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.step import make_train_step
+
+def wall(fn):
+    torch.cuda.synchronize(); t0 = time.perf_counter(); out = fn(); torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+cfg = get_arch("qwen2.5-14b-hmatrix").replace(n_layers=8)
+init_state, train_step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=1,
+                                                          total_steps=100),
+                                         microbatches=2, remat=True, device="cuda")
+dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=4096, global_batch=2, seed=0)
+batches = [make_batch(dcfg, s, device="cuda") for s in range(4)]
+state = init_state(torch.Generator(device="cuda").manual_seed(0))
+steps, losses = [], []
+for s in range(3):
+    (state, metrics), secs = wall(lambda: train_step(state, batches[s]))
+    steps.append(secs)
+    losses.append(float(metrics["loss"]))
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    state, _ = train_step(state, batches[3])
+    torch.cuda.synchronize()
+bwd_us = calls = 0
+for e in prof.key_averages():
+    if any(key in e.key for key in ("dq_kernel", "dkv_kernel", "fix_kernel")):
+        bwd_us += getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        calls += e.count
+# the same steps from the same state with the near field's plain backward:
+# where two kernels' losses part, how far the plain derivative's lie from each
+del state, prof
+torch.cuda.empty_cache()
+from repro_torch.kernels.hattention_block import ops
+from repro_torch.kernels.hattention_block.ref import hattention_nearfield_bwd_ref
+ops.hattention_nearfield_bwd_op = hattention_nearfield_bwd_ref
+state = init_state(torch.Generator(device="cuda").manual_seed(0))
+plain = []
+for s in range(3):
+    state, metrics = train_step(state, batches[s])
+    plain.append(float(metrics["loss"]))
+print(json.dumps({"step_s": steps[1:], "first_step_s": steps[0], "losses": losses,
+                  "losses_plain_backward": plain, "nearfield_bwd_profiled_ms": bwd_us / 1e3,
+                  "nearfield_bwd_kernel_calls": calls}))
+"""
+
+
+# For #11b: cell T's gradients at step 0 (the first microbatch pair of
+# phase t's state and data, 8 layers, bf16) with the kernel's backward and
+# with the near field's plain backward, both summed over the 2 microbatches
+# in float32 as the train step sums them: the relative error of each
+# parameter tensor's gradient, the worst tensor's, the whole gradient's,
+# and the share of components whose sign differs (AdamW's first step moves
+# each parameter by about lr along the sign of its gradient).  Controls
+# take the same readings for the plain backward with each component of its
+# dq, dk, dv moved by 2^-21 and by 2^-20 of itself (the sign drawn from a
+# seeded generator): what a change at the scale of fp32 rounding (the
+# kernels lie 4e-7 to 9e-7 from the plain derivative) does to the
+# gradients on its own.
+_TRAIN_GRADS = r"""
+import json, torch
+from repro_torch.configs.registry import get_arch
+from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.models.api import get_model
+from repro_torch.train.step import make_loss_fn
+
+cfg = get_arch("qwen2.5-14b-hmatrix").replace(n_layers=8)
+params = get_model(cfg, "cuda")["init_params"](torch.Generator(device="cuda").manual_seed(0))
+batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=4096, global_batch=2, seed=0),
+                   0, device="cuda")
+loss_fn = make_loss_fn(cfg, remat=True)
+names, plist = zip(*params.named_parameters())
+
+def grads():
+    acc, losses = None, []
+    for i in range(2):
+        mb = {key: batch[key][i:i + 1] for key in ("tokens", "labels")}
+        loss = loss_fn(params, mb)
+        g = torch.autograd.grad(loss, plist)
+        if acc is None:
+            acc = [x.float() / 2 for x in g]
+        else:
+            for a, x in zip(acc, g):
+                a.add_(x.float() / 2)
+        losses.append(float(loss.detach()))
+        del g, loss
+    return acc, losses
+
+def apart(g, g_plain):
+    rel, flips, total, diff2, ref2 = {}, 0, 0, 0.0, 0.0
+    for name, a, b in zip(names, g, g_plain):
+        d2, b2 = float(((a - b).double() ** 2).sum()), float((b.double() ** 2).sum())
+        rel[name] = (d2 / b2) ** 0.5 if b2 > 0 else float(d2 > 0)
+        diff2, ref2 = diff2 + d2, ref2 + b2
+        flips += int((torch.sign(a) != torch.sign(b)).sum())
+        total += a.numel()
+    worst = max(rel, key=rel.get)
+    return {"worst_leaf": worst, "worst_leaf_rel_err": rel[worst],
+            "whole_gradient_rel_err": (diff2 / ref2) ** 0.5, "sign_differs_share": flips / total,
+            "components": total, "rel_err_by_leaf": rel}
+
+from repro_torch.kernels.hattention_block import ops
+from repro_torch.kernels.hattention_block.ref import hattention_nearfield_bwd_ref
+g_kernel, loss_kernel = grads()
+ops.hattention_nearfield_bwd_op = hattention_nearfield_bwd_ref
+g_plain, loss_plain = grads()
+out = {"losses_kernel": loss_kernel, "losses_plain_backward": loss_plain,
+       **apart(g_kernel, g_plain)}
+del g_kernel
+for e in (21, 20):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def nudged(*args):
+        return tuple(x * (1.0 + 2.0 ** -e * (2.0 * torch.randint(0, 2, x.shape, generator=gen,
+                                                                  device=x.device) - 1.0))
+                     for x in hattention_nearfield_bwd_ref(*args))
+
+    ops.hattention_nearfield_bwd_op = nudged
+    g_nudged, _ = grads()
+    out[f"control_plain_nudged_2^-{e}"] = apart(g_nudged, g_plain)
+    del g_nudged
+print(json.dumps(out))
+"""
+
+
+def end_to_end(parent_dir: Path, script: str, key: str, rec,
+               turns=("parent", "new", "new", "parent")) -> None:
+    """One end-to-end script, parent and this checkout in ``turns`` (by
+    default parent, new, new, parent), one process each."""
     import os
     runs = []
-    for label, root in (("parent", parent_dir), ("new", ROOT), ("new", ROOT),
-                        ("parent", parent_dir)):
+    for label in turns:
+        root = parent_dir if label == "parent" else ROOT
         env = dict(os.environ, PYTHONPATH=str(root / "src"))
         out = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
                              check=True, capture_output=True, text=True).stdout
@@ -757,8 +943,9 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("parent_dir")
-    parser.add_argument("--kernels", default="2,3,4,5,6,7,8,11")
+    parser.add_argument("--kernels", default="2,3,4,5,6,7,8,11,11b")
     parser.add_argument("--end-to-end", action="store_true")
+    parser.add_argument("--train-grads", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print(__doc__.split("\n\n")[1], file=sys.stderr)
@@ -834,10 +1021,19 @@ def main() -> int:
         for label, shape in NEARFIELD_SHAPES.items():
             ok &= compare_nearfield(parent, label, shape, gen, rec)
             torch.cuda.empty_cache()
+    if "11b" in picked:
+        for label in ("train", "serve"):
+            ok &= compare_nearfield_bwd(parent, label, NEARFIELD_BWD_SHAPES[label], gen, rec)
+            torch.cuda.empty_cache()
     if args.end_to_end and picked & {"4", "6"}:
         end_to_end(Path(args.parent_dir).resolve(), _APPLY_PCG, "end_to_end_apply_pcg", rec)
     if args.end_to_end and picked & {"8", "11"}:
         end_to_end(Path(args.parent_dir).resolve(), _HLU_PREFILL, "end_to_end", rec)
+    if args.end_to_end and "11b" in picked:
+        end_to_end(Path(args.parent_dir).resolve(), _TRAIN_STEP, "end_to_end_train", rec)
+    if args.train_grads and "11b" in picked:
+        end_to_end(Path(args.parent_dir).resolve(), _TRAIN_GRADS, "train_grads", rec,
+                   turns=("parent", "new"))
     if args.end_to_end and picked & {"5", "7"}:
         end_to_end(Path(args.parent_dir).resolve(), _SETUP, "end_to_end_setup", rec)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

@@ -21,47 +21,84 @@
 //
 // Bound on the H100: operations.  A visible (row, key) pair needs five
 // products of length D (s, gnum . v, and the three sums), 10 D flops; at
-// the training shape (40, 8, 512, 128) that is 147 GFLOP against ~0.9 GB.
-// fp32 with no TF32.
+// the training shape (40, 8, 512, 128) that is 147.7 GFLOP against ~0.9 GB:
+// 2.2 ms at the 67 TFLOP/s of fp32 outside the tensor cores.
 //
-// Design (simple first; no tensor cores).  Three launches, no atomics, every
-// output written once by one thread, sums in a fixed order:
-//  1. dq: a CTA of 8 warps owns 64 rows of one (bh, leaf), a warp 8 of
-//     them.  It walks the 64-key tiles of leaf i-1, then those of leaf i up
-//     to its diagonal, through a double-buffered cp.async ring (one barrier
-//     a tile), as #11 does.  Lane (r, c) holds 2 rows x 8 keys of s and of
-//     gnum . v, and 2 x D/8 of dq; ds reaches the lanes of its row by
-//     shuffles.  The scores are recomputed in #11's order (one fma chain
-//     over d ascending), so s == m finds the row's max bit for bit.  The
-//     tie term is taken with weight dm for every entry that attains the
-//     max (exact where one entry does); the lanes count the ties per block,
-//     and the CTA writes dq, the per-row coefficients c_r of both blocks,
-//     dm and the tie count.
+// Numerics.  Every product runs on the tensor cores as 3xTF32: each fp32
+// operand x is split into hi = x rounded to tf32 (nearest, ties away from
+// zero: cvt.rna.tf32.f32) and lo = x - hi (exact in fp32; the tensor core
+// reads its top 19 bits), and lo.hi + hi.lo + hi.hi go into fp32
+// accumulators, the small terms first: fp32 accuracy (one-pass TF32 keeps
+// about three digits and is not used).  No TF32 flag is read or set.
+//
+// The arg-max stays #11's.  A 3xTF32 score and #11's (one fma chain over d
+// ascending) both lie within ~2^-16.5 |q| |k| of the exact product, so an
+// entry whose 3xTF32 score is below m - 2^-10 |q| |k| cannot attain m; the
+// others (the candidates: the max itself and near ties, about one a row)
+// are recomputed in #11's order by their lane and tested with == m, so the
+// ties are #11's bit for bit.  tests/test_torch_nearfield_bwd_split.py
+// holds the bound on the CPU.
+//
+// Instruction: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (SASS
+// HMMA.1688.F32.TF32), whose fragments come from ordinary 4-byte shared
+// loads in any layout.  Lane (g, t) = (lane / 4, lane % 4) of a warp holds
+// C rows g, g + 8 and columns 2t, 2t + 1 of each 8-wide tile; read as an A
+// fragment of the next product, those two columns become k = t and t + 4,
+// and the B fragment reads the same two keys (or rows), so scores, ds and p
+// go from one product's accumulator into the next as they are.
+//
+// Design: three launches, no atomics, every output written once by one
+// lane, every sum in a fixed order (two launches give the same bits).  CTAs
+// of 8 warps in 4 pairs, 16 owned rows or keys a pair; two CTAs an SM (at
+// D = 128: 110,080 and 100,352 B of shared memory, at most 128 registers),
+// 16 warps to cover the mma and load latencies.
+//  1. dq: a CTA owns 64 rows of one (bh, leaf) (q and gnum resident) and
+//     walks the 32-key tiles of leaf i-1, then those of leaf i up to its
+//     diagonal (cp.async).  Per tile, each warp of a pair takes 16 of the
+//     keys: the scores and gnum v^T (16 x 16), the candidates' exact test
+//     (|q| of the CTA's rows taken once from the resident tile, |k| of the
+//     warp's keys from the streamed one),
+//     p and ds = p (gnum . v + gden) + tie dm, stored to the stash; the pair
+//     trades its ds halves through shared memory (a named barrier), and
+//     each warp adds ds K into its half of dq's columns.  The tie term is
+//     taken with weight dm for every entry that attains the max (exact
+//     where one entry does); the lanes count the ties per block, and the
+//     CTA writes dq, the per-row coefficients c_r of both blocks, dm and the
+//     tie count.
 //  2. fix: a warp per row with more than one tie (rare: one exits at once
-//     otherwise) recomputes that row's scores, and adds (c_r - dm) k_j for
-//     each tied key, in key order.
-//  3. dk, dv: a CTA owns 64 keys of one (bh, leaf) (resident in shared
-//     memory), a warp 8 of them, and walks the 64-row tiles that see them:
-//     the causal rows of leaf i, then every row of leaf i+1, through the
-//     same ring.  Lane (k, c) holds 2 keys x 8 rows, and 2 x D/8 of dk and
-//     of dv.
-// Shared memory at D = 128: six 64 x 132 float tiles (202,752 B; the dk
-// pass adds 1,536 B of per-row scalars): one CTA of 256 threads per SM.
+//     otherwise) recomputes that row's scores, adds (c_r - dm) k_j to dq and
+//     (c_r - dm) to the stashed ds for each tied key, in key order.
+//  3. dk, dv: a CTA owns 64 keys of one (bh, leaf) and walks the 32-row
+//     tiles that see them (the causal rows of leaf i, then every row of
+//     leaf i+1): q and gnum rows and the stashed ds and p through a
+//     double-buffered cp.async ring; a pair's first warp adds ds^T Q into
+//     dk, its second p^T gnum into dv.
+// The stash holds ds and p of every row against its 2c keys (4 bh nl c^2
+// floats, 1.34 GB at the training shape, of which the visible 0.92 GB is
+// written once and read once): it spares the dk/dv pass the scores, gnum v^T
+// and the arg-max test, about half of the work.
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TT = 64;   // rows or keys per tile
-constexpr int NT = 256;  // 8 warps
-constexpr float NEG = -1e30f;
+constexpr int NT = 256;      // 8 warps: 4 pairs
+constexpr int OWN = 64;      // rows (dq) or keys (dk, dv) a CTA owns, 16 a pair
+constexpr int STR = 32;      // keys (dq) or rows (dk, dv) of a streamed tile, 16 a warp
+constexpr int FIX_NT = 256;
 
 template <int D>
 struct Layout {
-  static constexpr int LD = D + 4;             // row stride of every tile (conflict-free float4 reads)
-  static constexpr int T = TT * LD;            // floats of one tile
-  static constexpr int VW = D >= 32 ? 4 : 2;   // columns per contiguous run
-  static constexpr int NE = D / 8 / VW;        // runs per lane
-  static constexpr int PER = NE * VW;          // columns per lane (D / 8)
+  static constexpr int LD = D + 4;        // row stride of every tile: conflict-free fragments
+  static constexpr int OWN_T = OWN * LD;  // floats of a resident tile
+  static constexpr int STR_T = STR * LD;  // floats of a streamed tile
+  static constexpr int NK = D / 8;        // 8-wide steps over D
+  // dq: the tiles, the pairs' exchange (float4 a lane, 4 blocks of 8 a
+  // pair) and their tie counts (16 rows x 2 a pair); dk, dv: two slots of
+  // the streamed tiles and of each lane's 16 stashed values
+  static constexpr int XCH = (OWN / 16) * 4 * 32 * 16;
+  static constexpr int DQ_BYTES = (2 * OWN_T + 2 * STR_T) * (int)sizeof(float) + XCH + 512;
+  static constexpr int DKV_BYTES = (4 * STR_T + 2 * (NT / 32) * 16 * 32) * (int)sizeof(float);
 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -69,244 +106,436 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
   const int bytes = valid ? 16 : 0;     // 0: zero-fill, nothing read
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
 }
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 4 : 0;      // 0: zero-fill, nothing read
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-// TT x D floats, contiguous at src, into dst at row stride LD; rows past
+// the two warps of pair p meet (named barrier 1 + p; 0 is __syncthreads)
+__device__ __forceinline__ void pair_sync(int p) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + p) : "memory");
+}
+
+// rows x D floats, contiguous at src, into dst at row stride LD; rows past
 // `valid` are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int valid) {
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int rows,
+                                          int valid) {
   constexpr int V4 = D / 4;
-  for (int t = threadIdx.x; t < TT * V4; t += NT) {
-    const int r = t / V4, c4 = t - (t / V4) * V4;
+  for (int i = threadIdx.x; i < rows * V4; i += NT) {
+    const int r = i / V4, c4 = i - r * V4;
     const bool ok = r < valid;
     cp_async16(dst + r * Layout<D>::LD + c4 * 4, ok ? src + (size_t)r * D + c4 * 4 : src, ok);
   }
 }
 
-// a . b over D in ascending order, one fma chain: #11's order for the scores
+// x = hi + lo: hi rounded to tf32, to nearest with ties away from zero (what
+// cvt.rna.tf32.f32 gives a finite x, in two integer operations where the
+// compiler spends four on cvt's special cases), lo = x - hi exactly, handed
+// over as fp32 bits of which the tensor core reads the tf32 part
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a B fragment (k = t and t + 4 of one column), split
+struct BFrag {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void b_frag(float b0, float b1, BFrag& f) {
+  split(b0, f.hi[0], f.lo[0]);
+  split(b1, f.hi[1], f.lo[1]);
+}
+
+// A fragment of rows r, r + 8 and columns k, k + 4 of a row-major tile
 template <int D>
-__device__ __forceinline__ void dot_2x8(const float* A, const float* B, int a0, int b0,
-                                        float out[2][8]) {
+__device__ __forceinline__ void a_frag(const float* tile, int r, int k, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  constexpr int LD = Layout<D>::LD;
+  const float* a = tile + r * LD + k;
+  split(a[0], hi[0], lo[0]);
+  split(a[8 * LD], hi[1], lo[1]);
+  split(a[4], hi[2], lo[2]);
+  split(a[8 * LD + 4], hi[3], lo[3]);
+}
+
+// An accumulator fragment (rows g, g + 8; columns 2t, 2t + 1) read as an A
+// fragment: column 2t is k = t, column 2t + 1 is k = t + 4
+__device__ __forceinline__ void c_as_a(const float (&c)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
+// a . b over D in ascending order, one fma chain: #11's order for a score,
+// so that it equals #11's bit for bit
+template <int D>
+__device__ __forceinline__ float exact_score(const float* a, const float* b) {
+  float s = 0.0f;
+#pragma unroll 8
+  for (int d = 0; d < D; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + d);
+    const float4 y = *reinterpret_cast<const float4*>(b + d);
+    s = fmaf(x.x, y.x, s); s = fmaf(x.y, y.y, s);
+    s = fmaf(x.z, y.z, s); s = fmaf(x.w, y.w, s);
+  }
+  return s;
+}
+
+// The arg-max test of a warp's 16 x 16 tile of scores: the candidates (bit
+// 4 j + e set in cand: entries whose 3xTF32 score lies within the bound of
+// its error below the row's max) are recomputed in #11's order, A row
+// r + 8 (e / 2) against X entry 8 j + 2t + e % 2, and compared with their
+// row's max, max_of(bit).  Returns the bits of the entries that attain it.
+template <int D, typename M>
+__device__ __forceinline__ unsigned exact_ties(unsigned cand, const float* A, int r,
+                                               const float* X, int t, M max_of) {
+  constexpr int LD = Layout<D>::LD;
+  unsigned tie = 0;
+  while (__any_sync(0xffffffffu, cand != 0)) {
+    if (cand) {
+      const int b = __ffs(cand) - 1;
+      cand &= cand - 1;
+      const float x = exact_score<D>(A + (r + 8 * ((b >> 1) & 1)) * LD,
+                                     X + (8 * (b >> 2) + 2 * t + (b & 1)) * LD);
+      if (x == max_of(b)) tie |= 1u << b;
+    }
+  }
+  return tie;
+}
+
+// 2^-10 |q| |k| bounds the distance of a 3xTF32 score to #11's by a wide
+// margin (both lie within ~2^-16.5 |q| |k| of the exact product): a score
+// below m - 2^-10 |q| |k| cannot attain m
+constexpr float CAND = 0x1p-10f;
+
+// acc[i] = A[rows r, r + 8] . Y[entries 8 i + g] over D on the tensor cores:
+// gnum v^T (dq pass) or v gnum^T (dk, dv pass); Y: a warp's 16 entries of
+// the streamed tile.  The small terms of 3xTF32 go to accumulators of their
+// own, added at the end, and the two tiles are issued term by term.
+template <int D>
+__device__ __forceinline__ void products_d(const float* A, int r, const float* Y, int g, int t,
+                                           float (&acc)[2][4]) {
+  constexpr int LD = Layout<D>::LD;
+  float small[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = small[j][e] = 0.0f;
+#pragma unroll 4
+  for (int ks = 0; ks < Layout<D>::NK; ++ks) {
+    uint32_t ah[4], al[4];
+    a_frag<D>(A, r, 8 * ks + t, ah, al);
+    BFrag b[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* y = Y + (8 * j + g) * LD + 8 * ks + t;
+      b_frag(y[0], y[4], b[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) mma_tf32(small[j], al, b[j].hi[0], b[j].hi[1]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) mma_tf32(acc[j], ah, b[j].hi[0], b[j].hi[1]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) mma_tf32(small[j], ah, b[j].lo[0], b[j].lo[1]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += small[j][e];
+}
+
+// out[n] += a . X[32 entries][columns 8 (n0 + n) + g], n < NN, on the tensor
+// cores (3xTF32, the small terms first): a is 16 x 32 in the accumulator
+// layout, entries 0-15 in lo and 16-31 in hi; G column tiles at a time,
+// term by term.  Each 8-wide step is summed from zero and then added to out
+// in fp32: out sums up to 128 steps, and the tensor core's own accumulation
+// (three truncating adds a step) cost it about a decimal digit.
+template <int D, int NN, int G>
+__device__ __forceinline__ void products_tile(const float (&lo)[2][4], const float (&hi)[2][4],
+                                              const float* X, int n0, int g, int t,
+                                              float (&out)[NN][4]) {
   constexpr int LD = Layout<D>::LD;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < 4; ++j) {
+    uint32_t ah[4], al[4];
+    c_as_a(j < 2 ? lo[j & 1] : hi[j & 1], ah, al);
+    const float* x = X + (8 * j + 2 * t) * LD + 8 * n0 + g;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) out[i][j] = 0.0f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a[2], b[8];
+    for (int nb = 0; nb < NN; nb += G) {
+      BFrag b[G];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) a[i] = *reinterpret_cast<const float4*>(A + (a0 + 4 * i) * LD + d);
+      for (int i = 0; i < G; ++i) b_frag(x[8 * (nb + i)], x[LD + 8 * (nb + i)], b[i]);
+      float tmp[G][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(B + (b0 + 8 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        out[i][j] = fmaf(a[i].x, b[j].x, out[i][j]);
-        out[i][j] = fmaf(a[i].y, b[j].y, out[i][j]);
-        out[i][j] = fmaf(a[i].z, b[j].z, out[i][j]);
-        out[i][j] = fmaf(a[i].w, b[j].w, out[i][j]);
+      for (int i = 0; i < G; ++i) {
+        tmp[i][0] = tmp[i][1] = tmp[i][2] = tmp[i][3] = 0.0f;
+        mma_tf32(tmp[i], al, b[i].hi[0], b[i].hi[1]);
       }
+#pragma unroll
+      for (int i = 0; i < G; ++i) mma_tf32(tmp[i], ah, b[i].lo[0], b[i].lo[1]);
+#pragma unroll
+      for (int i = 0; i < G; ++i) mma_tf32(tmp[i], ah, b[i].hi[0], b[i].hi[1]);
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[nb + i][e] += tmp[i][e];
+    }
   }
 }
 
-// acc[i][.] += sum over the tile's 64 entries e of w[i][e] * X[e][lane's columns],
-// where w[i][8 j + o] sits in slot j of lane (lane's group, o)
-template <int D>
-__device__ __forceinline__ void accumulate(float acc[2][Layout<D>::PER], const float w[2][8],
-                                           const float* X, int lane) {
-  using L = Layout<D>;
-  constexpr int VW = L::VW, NE = L::NE;
-  const int lc = lane & 7;
+// row g + 8 h of an accumulator over NN column tiles into dst (float2 stores)
+template <int NN>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float (&acc)[NN][4],
+                                           int h, int t) {
+  float* out = dst + 2 * t;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int o = 0; o < 8; ++o) {
-      float pv[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) pv[i] = __shfl_sync(0xffffffffu, w[i][j], (lane & ~7) | o);
-      const float* xrow = X + (8 * j + o) * L::LD + VW * lc;
-#pragma unroll
-      for (int e = 0; e < NE; ++e) {
-        float xv[VW];
-        if constexpr (VW == 4) {
-          const float4 x = *reinterpret_cast<const float4*>(xrow + 8 * VW * e);
-          xv[0] = x.x; xv[1] = x.y; xv[2] = x.z; xv[3] = x.w;
-        } else {
-          const float2 x = *reinterpret_cast<const float2*>(xrow + 8 * VW * e);
-          xv[0] = x.x; xv[1] = x.y;
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int u = 0; u < VW; ++u) acc[i][e * VW + u] = fmaf(pv[i], xv[u], acc[i][e * VW + u]);
-      }
-    }
+  for (int n = 0; n < NN; ++n)
+    *reinterpret_cast<float2*>(out + 8 * n) = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
 }
 
-template <int D>
-__device__ __forceinline__ void store_row(float* __restrict__ dst, const float* acc, int lane) {
-  using L = Layout<D>;
-  constexpr int VW = L::VW;
-  float* out = dst + VW * (lane & 7);
-#pragma unroll
-  for (int e = 0; e < L::NE; ++e) {
-    if constexpr (VW == 4) {
-      *reinterpret_cast<float4*>(out + 8 * VW * e) =
-          make_float4(acc[4 * e], acc[4 * e + 1], acc[4 * e + 2], acc[4 * e + 3]);
-    } else {
-      *reinterpret_cast<float2*>(out + 8 * VW * e) = make_float2(acc[2 * e], acc[2 * e + 1]);
-    }
-  }
+__device__ __forceinline__ float4 as_float4(const float (&c)[4]) {
+  return make_float4(c[0], c[1], c[2], c[3]);
+}
+
+__device__ __forceinline__ void from_float4(float4 x, float (&c)[4]) {
+  c[0] = x.x; c[1] = x.y; c[2] = x.z; c[3] = x.w;
 }
 
 // ---------------------------------------------------------------- 1. dq
 template <int D>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(NT, 2)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
           const float* __restrict__ num, const float* __restrict__ den,
           const float* __restrict__ mrow, const float* __restrict__ gnum,
           const float* __restrict__ gden, const float* __restrict__ gm, float* __restrict__ dq,
           float* __restrict__ coef_d, float* __restrict__ coef_s, float* __restrict__ dmv,
-          int* __restrict__ ties, int nl, int c, int nrt) {
+          int* __restrict__ ties, float* __restrict__ dsv, float* __restrict__ pv, int nl, int c,
+          int nrt) {
   using L = Layout<D>;
-  constexpr int VW = L::VW, NE = L::NE, PER = L::PER;
+  constexpr int LD = L::LD, NH = L::NK / 2, G = NH < 8 ? NH : 8;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Gs = Qs + L::T;
-  float* Ks = Gs + L::T;          // two key tiles
-  float* Vs = Ks + 2 * L::T;      // two value tiles
+  float* Gs = Qs + L::OWN_T;
+  float* Ks = Gs + L::OWN_T;
+  float* Vs = Ks + L::STR_T;
+  float4* Xs = reinterpret_cast<float4*>(Vs + L::STR_T);    // [pair][8-key block][lane]
+  int* Cs = reinterpret_cast<int*>(Xs + 4 * 4 * 32);        // [pair][row][diag, prev]
 
-  const int rt = (int)(blockIdx.x % nrt);
+  const int rt = nrt - 1 - (int)(blockIdx.x % nrt);   // the longest row tiles first
   const long long bl = blockIdx.x / nrt;              // bh * nl + leaf
   const int leaf = (int)(bl % nl);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lr = lane >> 3, lc = lane & 7;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp >> 1, hf = warp & 1;          // a pair's 16 rows; keys / columns half
   const size_t leaf_off = (size_t)bl * c * D;
-  const int r0 = rt * TT;
-  const int nkt = (c + TT - 1) / TT;
-  const int r_last = min(r0 + TT, c) - 1;
+  const int r0 = rt * OWN;
+  const int nkt = (c + STR - 1) / STR;
   const int n_prev = leaf > 0 ? nkt : 0;
-  const int n_tiles = n_prev + r_last / TT + 1;
-  const int w0 = r0 + 8 * warp;                       // the warp's first row
-  const int w_last = min(w0 + 7, c - 1);
+  const int n_tiles = n_prev + (min(r0 + OWN, c) - 1) / STR + 1;
+  const int wr = 16 * pair;                           // the pair's first row in the tile
+  const int w0 = r0 + wr;                             // ... in the leaf
+  const int w_last = min(w0 + 15, c - 1);
+  const int kb = 16 * hf;                             // the warp's first key of a tile
 
-  auto tile_src = [&](int t, int* rows, int* tile) {
-    const bool prev = t < n_prev;
-    *tile = prev ? t : t - n_prev;
-    *rows = min(TT, c - *tile * TT);
-    return prev ? leaf_off - (size_t)c * D + (size_t)(*tile) * TT * D
-                : leaf_off + (size_t)(*tile) * TT * D;
-  };
+  load_tile<D>(Qs, q + leaf_off + (size_t)r0 * D, OWN, c - r0);
+  load_tile<D>(Gs, gnum + leaf_off + (size_t)r0 * D, OWN, c - r0);
 
-  load_tile<D>(Qs, q + leaf_off + (size_t)r0 * D, c - r0);
-  load_tile<D>(Gs, gnum + leaf_off + (size_t)r0 * D, c - r0);
-  {
-    int rows, tile;
-    const size_t off = tile_src(0, &rows, &tile);
-    load_tile<D>(Ks, k + off, rows);
-    load_tile<D>(Vs, v + off, rows);
-  }
-  cp_async_commit();
-
-  // per-row scalars of the lane's rows w0 + lr + 4 i
-  float m[2], gd[2], dm[2], acc[2][PER];
+  // scalars of the lane's rows w0 + g + 8 h; gnum . num over 16-column
+  // runs of the row's 4 lanes, then across them
+  float m[2], gd[2], dm[2], thr[2] = {0.0f, 0.0f};   // thr: CAND |q|, set at the first tile
   int cnt_d[2], cnt_s[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = w0 + lr + 4 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = w0 + g + 8 * h;
     const bool ok = row < c;
     const size_t at = (size_t)bl * c + (ok ? row : 0);
-    m[i] = ok ? mrow[at] : 0.0f;
-    gd[i] = ok ? gden[at] : 0.0f;
-    // gnum . num over the lane's columns, then across the row's 8 lanes
+    m[h] = ok ? mrow[at] : 0.0f;
+    gd[h] = ok ? gden[at] : 0.0f;
     float part = 0.0f;
     if (ok) {
-      const float* gr = gnum + at * D + VW * lc;
-      const float* nr = num + at * D + VW * lc;
 #pragma unroll
-      for (int e = 0; e < NE; ++e)
-#pragma unroll
-        for (int u = 0; u < VW; ++u) part = fmaf(gr[8 * VW * e + u], nr[8 * VW * e + u], part);
-    }
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    dm[i] = ok ? gm[at] - (part + gd[i] * den[at]) : 0.0f;
-    cnt_d[i] = cnt_s[i] = 0;
-#pragma unroll
-    for (int e = 0; e < PER; ++e) acc[i][e] = 0.0f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();
-    __syncthreads();     // tile t is in; every warp is done with tile t - 1's buffers
-    if (t + 1 < n_tiles) {
-      int rows, tile;
-      const size_t off = tile_src(t + 1, &rows, &tile);
-      load_tile<D>(Ks + ((t + 1) & 1) * L::T, k + off, rows);
-      load_tile<D>(Vs + ((t + 1) & 1) * L::T, v + off, rows);
-      cp_async_commit();
-    }
-    int rows, tile;
-    tile_src(t, &rows, &tile);
-    const bool causal = t >= n_prev;
-    if (w0 >= c || (causal && tile * TT > w_last)) continue;
-    const float* Kb = Ks + (t & 1) * L::T;
-    const float* Vb = Vs + (t & 1) * L::T;
-
-    float s[2][8], w[2][8];
-    dot_2x8<D>(Qs, Kb, 8 * warp + lr, lc, s);
-    dot_2x8<D>(Gs, Vb, 8 * warp + lr, lc, w);      // gnum . v
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = w0 + lr + 4 * i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = lc + 8 * j;
-        const bool vis = row < c && col < rows && (!causal || tile * TT + col <= row);
-        const bool tie = vis && s[i][j] == m[i];
-        const float p = vis ? expf(s[i][j] - m[i]) : 0.0f;
-        w[i][j] = vis ? fmaf(p, w[i][j] + gd[i], tie ? dm[i] : 0.0f) : 0.0f;
-        if (causal) cnt_d[i] += tie; else cnt_s[i] += tie;
+      for (int e = 0; e < D / 16; ++e) {
+        const float4 a = *reinterpret_cast<const float4*>(gnum + at * D + 16 * e + 4 * t);
+        const float4 b = *reinterpret_cast<const float4*>(num + at * D + 16 * e + 4 * t);
+        part = fmaf(a.x, b.x, part); part = fmaf(a.y, b.y, part);
+        part = fmaf(a.z, b.z, part); part = fmaf(a.w, b.w, part);
       }
     }
-    accumulate<D>(acc, w, Kb, lane);
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    dm[h] = ok ? gm[at] - (part + gd[h] * den[at]) : 0.0f;
+    cnt_d[h] = cnt_s[h] = 0;
+  }
+  float acc[NH][4];       // dq of rows g, g + 8, columns of the warp's half of D
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const bool prev = it < n_prev;
+    const int tile = prev ? it : it - n_prev;
+    const int rows = min(STR, c - tile * STR);
+    const size_t off = (prev ? leaf_off - (size_t)c * D : leaf_off) + (size_t)tile * STR * D;
+    if (it > 0) __syncthreads();     // every warp is done with tile it - 1
+    load_tile<D>(Ks, k + off, STR, rows);
+    load_tile<D>(Vs, v + off, STR, rows);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    if (it == 0) {
+      // |q| of the lane's rows from the resident tile (rows past c are zeros),
+      // a quarter of D a lane, then across the row's 4 lanes
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* qr = Qs + (wr + g + 8 * h) * LD + t * (D / 4);
+        float a = 0.0f;
+#pragma unroll
+        for (int e = 0; e < D / 4; e += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(qr + e);
+          a = fmaf(x.x, x.x, a); a = fmaf(x.y, x.y, a);
+          a = fmaf(x.z, x.z, a); a = fmaf(x.w, x.w, a);
+        }
+        a += __shfl_xor_sync(0xffffffffu, a, 1);
+        a += __shfl_xor_sync(0xffffffffu, a, 2);
+        thr[h] = CAND * sqrtf(a);
+      }
+    }
+    // a pair with no valid row, or whose rows all lie above this own tile, skips it
+    if (w0 >= c || (!prev && tile * STR > w_last)) continue;
+
+    // ds of the pair's 16 rows and the warp's 16 keys
+    float w[2][4], s[2][4];
+    if (prev || tile * STR + kb <= w_last) {
+      products_d<D>(Gs, wr + g, Vs + kb * LD, g, t, w);          // gnum . v
+      products_d<D>(Qs, wr + g, Ks + kb * LD, g, t, s);          // q . k
+      // |k| of the warp's 16 keys: lane l sums half l / 16 of key l % 16's
+      // squares; kn[j][u] is key 8 j + 2 t + u's, from the lane holding it
+      float kn2 = 0.0f;
+      const float* kr = Ks + (kb + (lane & 15)) * LD + (lane >> 4) * (D / 2);
+#pragma unroll
+      for (int e = 0; e < D / 2; e += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(kr + e);
+        kn2 = fmaf(x.x, x.x, kn2); kn2 = fmaf(x.y, x.y, kn2);
+        kn2 = fmaf(x.z, x.z, kn2); kn2 = fmaf(x.w, x.w, kn2);
+      }
+      kn2 += __shfl_xor_sync(0xffffffffu, kn2, 16);
+      const float knl = sqrtf(kn2);
+      float kn[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) kn[j][u] = __shfl_sync(0xffffffffu, knl, 8 * j + 2 * t + u);
+      unsigned vis = 0, cand = 0;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, b = 4 * j + e;
+          const int row = w0 + g + 8 * h;
+          const int kl = kb + 8 * j + 2 * t + (e & 1);
+          const bool ok = row < c && kl < rows && (prev || tile * STR + kl <= row);
+          vis |= (unsigned)ok << b;
+          cand |= (unsigned)(ok && s[j][e] >= fmaf(-thr[h], kn[j][e & 1], m[h])) << b;
+        }
+      const unsigned tie = exact_ties<D>(cand, Qs, wr + g, Ks + kb * LD, t,
+                                         [&](int b) { return (b >> 1) & 1 ? m[1] : m[0]; });
+      // ds and p to the stash, row-major over [leaf i-1 | leaf i]'s 2c keys
+      const size_t col = (size_t)(prev ? 0 : c) + tile * STR + kb + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, b = 4 * j + e;
+          const bool ok = vis >> b & 1, hit = tie >> b & 1;
+          const float p = ok ? expf(s[j][e] - m[h]) : 0.0f;
+          w[j][e] = ok ? fmaf(p, w[j][e] + gd[h], hit ? dm[h] : 0.0f) : 0.0f;
+          if (prev) cnt_s[h] += hit; else cnt_d[h] += hit;
+          const int row = w0 + g + 8 * h;
+          if (row < c && kb + 8 * j + 2 * t + (e & 1) < rows) {
+            const size_t at = ((size_t)bl * c + row) * 2 * c + col + 8 * j + (e & 1);
+            dsv[at] = w[j][e];
+            pv[at] = p;
+          }
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[j][e] = 0.0f;
+    }
+    // both halves of the tile's keys to both warps of the pair
+    float4* x = Xs + pair * 4 * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) x[(2 * hf + j) * 32] = as_float4(w[j]);
+    pair_sync(pair);
+    float lo[2][4], hi[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      from_float4(x[j * 32], lo[j]);
+      from_float4(x[(2 + j) * 32], hi[j]);
+    }
+    products_tile<D, NH, G>(lo, hi, Ks, hf * NH, g, t, acc);    // dq += ds K
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int off = 1; off < 8; off <<= 1) {
-      cnt_d[i] += __shfl_xor_sync(0xffffffffu, cnt_d[i], off);
-      cnt_s[i] += __shfl_xor_sync(0xffffffffu, cnt_s[i], off);
+    for (int off = 1; off < 4; off <<= 1) {
+      cnt_d[h] += __shfl_xor_sync(0xffffffffu, cnt_d[h], off);
+      cnt_s[h] += __shfl_xor_sync(0xffffffffu, cnt_s[h], off);
     }
-    const int row = w0 + lr + 4 * i;
+  int* cs = Cs + pair * 32;
+  if (hf == 1 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      cs[2 * (g + 8 * h)] = cnt_d[h];
+      cs[2 * (g + 8 * h) + 1] = cnt_s[h];
+    }
+  }
+  pair_sync(pair);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = w0 + g + 8 * h;
     if (row >= c) continue;
     const size_t at = (size_t)bl * c + row;
-    store_row<D>(dq + at * D, acc[i], lane);
-    if (lc == 0) {
-      const int cd = cnt_d[i], cs = cnt_s[i];
-      coef_d[at] = cd > 0 ? dm[i] * (cs > 0 ? 0.5f : 1.0f) / (float)cd : 0.0f;
-      coef_s[at] = cs > 0 ? dm[i] * (cd > 0 ? 0.5f : 1.0f) / (float)cs : 0.0f;
-      dmv[at] = dm[i];
-      ties[at] = cd + cs;
+    store_rows<NH>(dq + at * D + 8 * NH * hf, acc, h, t);
+    if (hf == 0 && t == 0) {
+      const int cd = cnt_d[h] + cs[2 * (g + 8 * h)], ns = cnt_s[h] + cs[2 * (g + 8 * h) + 1];
+      coef_d[at] = cd > 0 ? dm[h] * (ns > 0 ? 0.5f : 1.0f) / (float)cd : 0.0f;
+      coef_s[at] = ns > 0 ? dm[h] * (cd > 0 ? 0.5f : 1.0f) / (float)ns : 0.0f;
+      dmv[at] = dm[h];
+      ties[at] = cd + ns;
     }
   }
 }
 
 // ---------------------------------------------------------------- 2. fix
-// dq of a row whose max is attained more than once: pass 1 gave each tied
-// key the weight dm, the row needs c_r(block).
+// dq and the stashed ds of a row whose max is attained more than once: pass
+// 1 gave each tied key the weight dm, the row needs c_r(block).
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(FIX_NT)
 fix_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ mrow, const float* __restrict__ coef_d,
            const float* __restrict__ coef_s, const float* __restrict__ dmv,
-           const int* __restrict__ ties, float* __restrict__ dq, int nl, int c, long long rows) {
+           const int* __restrict__ ties, float* __restrict__ dq, float* __restrict__ dsv,
+           int nl, int c, long long rows) {
   constexpr int NC = (D + 31) / 32;
-  const long long at = (long long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  const long long at = (long long)blockIdx.x * (FIX_NT / 32) + (threadIdx.x >> 5);
   if (at >= rows || ties[at] <= 1) return;
   const int lane = threadIdx.x & 31;
   const long long bl = at / c;
@@ -329,7 +558,9 @@ fix_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float* kj = kb + (size_t)j * D;
         for (int d = 0; d < D; ++d) s = fmaf(qr[d], kj[d], s);
       }
-      unsigned hit = __ballot_sync(0xffffffffu, j < n && s == m);
+      const bool tied = j < n && s == m;
+      if (tied) dsv[at * 2 * c + (size_t)blk * c + j] += fix;   // the stash's ds, for dk
+      unsigned hit = __ballot_sync(0xffffffffu, tied);
       while (hit) {
         const int b = __ffs(hit) - 1;
         hit &= hit - 1;
@@ -347,119 +578,113 @@ fix_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---------------------------------------------------------------- 3. dk, dv
 template <int D>
-__global__ void __launch_bounds__(NT, 1)
-dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           const float* __restrict__ mrow, const float* __restrict__ gnum,
-           const float* __restrict__ gden, const float* __restrict__ coef_d,
-           const float* __restrict__ coef_s, float* __restrict__ dk, float* __restrict__ dv,
-           int nl, int c, int nkt) {
+__global__ void __launch_bounds__(NT, 2)
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ gnum,
+           const float* __restrict__ dsv, const float* __restrict__ pv, float* __restrict__ dk,
+           float* __restrict__ dv, int nl, int c, int nkt) {
   using L = Layout<D>;
-  constexpr int PER = L::PER;
+  constexpr int NK = L::NK, G = NK < 4 ? NK : 4;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + L::T;
-  float* Qs = Vs + L::T;          // two row tiles of q
-  float* Gs = Qs + 2 * L::T;      // two row tiles of gnum
-  float* Sc = Gs + 2 * L::T;      // per row of the two tiles: m, gden, coefficient
+  float* Qs = smem;               // two slots of the streamed row tiles of q and of gnum
+  float* Gs = Qs + 2 * L::STR_T;
+  float* Ss = Gs + 2 * L::STR_T;  // two slots of the stash: [warp][16 values][lane]
 
-  const int kt = (int)(blockIdx.x % nkt);
+  const int kt = (int)(blockIdx.x % nkt);             // kt = 0 sees the most rows
   const long long bl = blockIdx.x / nkt;
   const int leaf = (int)(bl % nl);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int kr = lane >> 3, lc = lane & 7;
-  const size_t leaf_off = (size_t)bl * c * D;
-  const int k0 = kt * TT;
-  const int n_diag = nkt - kt;                        // row tiles of leaf i from the diagonal on
-  const int n_tiles = n_diag + (leaf + 1 < nl ? nkt : 0);
-  const int w0 = k0 + 8 * warp;                       // the warp's first key
+  const int g = lane >> 2, t = lane & 3;
+  // a pair's 16 keys; its first warp sums dk = ds^T q, its second dv = p^T gnum
+  const int pair = warp >> 1, hf = warp & 1;
+  const int k0 = kt * OWN;
+  const int nrs = (c + STR - 1) / STR;
+  const int first_diag = k0 / STR;                    // the first row tile of leaf i that sees a key
+  const int n_diag = nrs - first_diag;
+  const int n_tiles = n_diag + (leaf + 1 < nl ? nrs : 0);
+  const int w0 = k0 + 16 * pair;                      // the pair's first key in the leaf
+  const float* src = hf ? pv : dsv;
+  const float* X = hf ? Gs : Qs;
+  float* stage = Ss + warp * 16 * 32 + lane;
 
-  auto tile_rows = [&](int t, int* rows, int* first) {  // offset of the tile's first row
-    const bool diag = t < n_diag;
-    *first = (diag ? kt + t : t - n_diag) * TT;
-    *rows = min(TT, c - *first);
-    return (size_t)(bl + (diag ? 0 : 1)) * c + *first;
+  // tile it: rows first .. first + rows - 1 of leaf i (diag) or of leaf i+1
+  auto tile_of = [&](int it, bool& diag, int& first, int& rows) {
+    diag = it < n_diag;
+    first = (diag ? first_diag + it : it - n_diag) * STR;
+    rows = min(STR, c - first);
   };
-  auto load_rows = [&](int t) {
-    int rows, first;
-    const size_t row0 = tile_rows(t, &rows, &first);
-    load_tile<D>(Qs + (t & 1) * L::T, q + row0 * D, rows);
-    load_tile<D>(Gs + (t & 1) * L::T, gnum + row0 * D, rows);
-    const float* coef = t < n_diag ? coef_d : coef_s;
-    float* sc = Sc + (t & 1) * 3 * TT;
-    for (int e = threadIdx.x; e < TT; e += NT) {
-      const bool ok = e < rows;
-      sc[e] = ok ? mrow[row0 + e] : 0.0f;
-      sc[TT + e] = ok ? gden[row0 + e] : 0.0f;
-      sc[2 * TT + e] = ok ? coef[row0 + e] : 0.0f;
-    }
-  };
-
-  load_tile<D>(Ks, k + leaf_off + (size_t)k0 * D, c - k0);
-  load_tile<D>(Vs, v + leaf_off + (size_t)k0 * D, c - k0);
-  if (n_tiles > 0) load_rows(0);
-  cp_async_commit();
-
-  float adk[2][PER], adv[2][PER];
+  // tile it's q and gnum rows, and the lane's 16 stashed values of it in the
+  // accumulator layout (keys g, g + 8 of the pair, rows 8 j + 2t + e % 2 of
+  // the tile at 4 j + e; 0 where not visible), into slot it % 2
+  auto load = [&](int it) {
+    bool diag;
+    int first, rows;
+    tile_of(it, diag, first, rows);
+    const size_t row0 = (size_t)(bl + (diag ? 0 : 1)) * c + first;
+    load_tile<D>(Qs + (it & 1) * L::STR_T, q + row0 * D, STR, rows);
+    load_tile<D>(Gs + (it & 1) * L::STR_T, gnum + row0 * D, STR, rows);
+    const float* tp = src + row0 * 2 * c + (diag ? c : 0) + w0 + g + 2 * t * 2 * c;
+    float* dst = stage + (it & 1) * (NT / 32) * 16 * 32;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int e = 0; e < PER; ++e) adk[i][e] = adv[i][e] = 0.0f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();
-    __syncthreads();     // tile t is in; every warp is done with tile t - 1's buffers
-    if (t + 1 < n_tiles) {
-      load_rows(t + 1);
-      cp_async_commit();
-    }
-    int rows, first;
-    tile_rows(t, &rows, &first);
-    const bool causal = t < n_diag;
-    // a warp with no valid key, or whose keys all lie past this diagonal tile's rows, skips it
-    if (w0 >= c || (causal && first + TT - 1 < w0)) continue;
-    const float* Qb = Qs + (t & 1) * L::T;
-    const float* Gb = Gs + (t & 1) * L::T;
-    const float* sc = Sc + (t & 1) * 3 * TT;
-
-    float s[2][8], w[2][8];
-    dot_2x8<D>(Ks, Qb, 8 * warp + kr, lc, s);
-    dot_2x8<D>(Vs, Gb, 8 * warp + kr, lc, w);       // gnum . v
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int key = w0 + kr + 4 * i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int e = lc + 8 * j;                       // row of the tile
-        const bool vis = key < c && e < rows && (!causal || key <= first + e);
-        const float mr = sc[e];
-        const float p = vis ? expf(s[i][j] - mr) : 0.0f;
-        const bool tie = vis && s[i][j] == mr;
-        w[i][j] = vis ? fmaf(p, w[i][j] + sc[TT + e], tie ? sc[2 * TT + e] : 0.0f) : 0.0f;
-        s[i][j] = p;
+      for (int e = 0; e < 4; ++e) {
+        const int dk = 8 * (e >> 1), rl = 8 * j + 2 * t + (e & 1);
+        const int key = w0 + g + dk;
+        const bool ok = key < c && rl < rows && (!diag || key <= first + rl);
+        cp_async4(dst + (4 * j + e) * 32, ok ? tp + (8 * j + (e & 1)) * 2 * c + dk : src, ok);
       }
-    }
-    accumulate<D>(adk, w, Qb, lane);
-    accumulate<D>(adv, s, Gb, lane);
+    cp_async_commit();
+  };
+
+  float acc[NK][4];
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  load(0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();     // tile it is in; every warp is done with tile it - 1's slot
+    if (it + 1 < n_tiles) load(it + 1);
+    bool diag;
+    int first, rows;
+    tile_of(it, diag, first, rows);
+    // a pair with no valid key, or whose keys all lie past this diagonal tile's rows, skips it
+    if (w0 >= c || (diag && first + rows - 1 < w0)) continue;
+    float lo[2][4], hi[2][4];       // rows 0-15 and 16-31 of the tile
+    const float* st = stage + (it & 1) * (NT / 32) * 16 * 32;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        lo[j][e] = st[(4 * j + e) * 32];
+        hi[j][e] = st[(4 * j + 8 + e) * 32];
+      }
+    products_tile<D, NK, G>(lo, hi, X + (it & 1) * L::STR_T, 0, g, t, acc);
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = w0 + kr + 4 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int key = w0 + g + 8 * h;
     if (key >= c) continue;
-    const size_t at = (size_t)bl * c + key;
-    store_row<D>(dk + at * D, adk[i], lane);
-    store_row<D>(dv + at * D, adv[i], lane);
+    store_rows<NK>((hf ? dv : dk) + ((size_t)bl * c + key) * D, acc, h, t);
   }
 }
 
 template <typename K>
-int raise_smem(K kernel, int bytes, unsigned long long* raised) {
-  // the cap on dynamic shared memory, set once per device (bit = device)
+int prepare(K kernel, int bytes, unsigned long long* raised) {
+  // the cap on dynamic shared memory and the carveout, set once per device (bit = device)
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err) return err;
   if (!(*raised >> (dev & 63) & 1)) {
-    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (bytes > 48 * 1024) {
+      err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err) return err;
+    }
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    (int)cudaSharedmemCarveoutMaxShared);
     if (err) return err;
     *raised |= 1ull << (dev & 63);
   }
@@ -467,42 +692,62 @@ int raise_smem(K kernel, int bytes, unsigned long long* raised) {
 }
 
 template <int D>
+int prepare_all() {
+  using L = Layout<D>;
+  static unsigned long long raised_dq = 0, raised_dkv = 0;
+  int err = prepare(dq_kernel<D>, L::DQ_BYTES, &raised_dq);
+  return err ? err : prepare(dkv_kernel<D>, L::DKV_BYTES, &raised_dkv);
+}
+
+template <int D>
 int launch(const float* q, const float* k, const float* v, const float* num, const float* den,
            const float* m, const float* gnum, const float* gden, const float* gm, float* dq,
-           float* dk, float* dv, float* scratch, int* ties, int bh, int nl, int c,
+           float* dk, float* dv, float* scratch, int* ties, float* stash, int bh, int nl, int c,
            cudaStream_t s) {
   using L = Layout<D>;
-  const int nt = (c + TT - 1) / TT;
+  const int nt = (c + OWN - 1) / OWN;
   const long long blocks = (long long)bh * nl * nt;
   const long long rows = (long long)bh * nl * c;
-  const long long fix_blocks = (rows + NT / 32 - 1) / (NT / 32);
+  const long long fix_blocks = (rows + FIX_NT / 32 - 1) / (FIX_NT / 32);
   if (blocks > 2147483647LL || fix_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   float* coef_d = scratch;
   float* coef_s = scratch + rows;
   float* dmv = scratch + 2 * rows;
-  constexpr int dq_bytes = 6 * L::T * (int)sizeof(float);
-  constexpr int dkv_bytes = (6 * L::T + 6 * TT) * (int)sizeof(float);
-  static unsigned long long raised_dq = 0, raised_dkv = 0;
-  int err = 0;
-  if constexpr (dq_bytes > 48 * 1024) {
-    err = raise_smem(dq_kernel<D>, dq_bytes, &raised_dq);
-    if (err) return err;
-  }
-  if constexpr (dkv_bytes > 48 * 1024) {
-    err = raise_smem(dkv_kernel<D>, dkv_bytes, &raised_dkv);
-    if (err) return err;
-  }
-  dq_kernel<D><<<(unsigned)blocks, NT, dq_bytes, s>>>(q, k, v, num, den, m, gnum, gden, gm, dq,
-                                                      coef_d, coef_s, dmv, ties, nl, c, nt);
+  float* dsv = stash;                          // ds and p of every row against its 2c keys
+  float* pv = stash + rows * 2 * c;
+  int err = prepare_all<D>();
+  if (err) return err;
+  dq_kernel<D><<<(unsigned)blocks, NT, L::DQ_BYTES, s>>>(q, k, v, num, den, m, gnum, gden, gm,
+                                                         dq, coef_d, coef_s, dmv, ties, dsv, pv,
+                                                         nl, c, nt);
   err = (int)cudaGetLastError();
   if (err) return err;
-  fix_kernel<D><<<(unsigned)fix_blocks, NT, 0, s>>>(q, k, m, coef_d, coef_s, dmv, ties, dq, nl,
-                                                    c, rows);
+  fix_kernel<D><<<(unsigned)fix_blocks, FIX_NT, 0, s>>>(q, k, m, coef_d, coef_s, dmv, ties, dq,
+                                                        dsv, nl, c, rows);
   err = (int)cudaGetLastError();
   if (err) return err;
-  dkv_kernel<D><<<(unsigned)blocks, NT, dkv_bytes, s>>>(q, k, v, m, gnum, gden, coef_d, coef_s,
-                                                        dk, dv, nl, c, nt);
+  dkv_kernel<D><<<(unsigned)blocks, NT, L::DKV_BYTES, s>>>(q, gnum, dsv, pv, dk, dv, nl, c, nt);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int info(int* out) {
+  using L = Layout<D>;
+  int err = prepare_all<D>();
+  if (err) return err;
+  cudaFuncAttributes a{};
+  int ctas = 0;
+  err = (int)cudaFuncGetAttributes(&a, dq_kernel<D>);
+  if (!err) err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, dq_kernel<D>, NT,
+                                                                       L::DQ_BYTES);
+  if (err) return err;
+  out[0] = a.numRegs; out[1] = (int)a.localSizeBytes; out[2] = L::DQ_BYTES; out[3] = ctas;
+  err = (int)cudaFuncGetAttributes(&a, dkv_kernel<D>);
+  if (!err) err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, dkv_kernel<D>, NT,
+                                                                       L::DKV_BYTES);
+  if (err) return err;
+  out[4] = a.numRegs; out[5] = (int)a.localSizeBytes; out[6] = L::DKV_BYTES; out[7] = ctas;
+  return 0;
 }
 
 }  // namespace
@@ -510,21 +755,36 @@ int launch(const float* q, const float* k, const float* v, const float* num, con
 // q, k, v, num, gnum, dq, dk, dv: (bh, nl, c, d); den, m, gden, gm: (bh, nl,
 // c); f32 contiguous, q pre-scaled, 16-byte aligned; num, den and m as #11
 // computed them from these q, k, v (the arg-max is found by s == m).
-// scratch: 3 bh nl c floats, ties: bh nl c ints.  d in {16, 32, 64, 128}
+// scratch: 3 bh nl c floats, ties: bh nl c ints, stash: 4 bh nl c^2 floats
+// (ds and p of every row against its 2c keys).  d in {16, 32, 64, 128}
 // (cudaErrorInvalidValue otherwise).
 extern "C" int repro_hattention_nearfield_bwd(const float* q, const float* k, const float* v,
                                               const float* num, const float* den,
                                               const float* m, const float* gnum,
                                               const float* gden, const float* gm, float* dq,
                                               float* dk, float* dv, float* scratch, int* ties,
-                                              int bh, int nl, int c, int d, void* stream) {
+                                              float* stash, int bh, int nl, int c, int d,
+                                              void* stream) {
   if (bh <= 0 || nl <= 0 || c <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch<16>(q, k, v, num, den, m, gnum, gden, gm, dq, dk, dv, scratch, ties, bh, nl, c, s);
-    case 32: return launch<32>(q, k, v, num, den, m, gnum, gden, gm, dq, dk, dv, scratch, ties, bh, nl, c, s);
-    case 64: return launch<64>(q, k, v, num, den, m, gnum, gden, gm, dq, dk, dv, scratch, ties, bh, nl, c, s);
-    case 128: return launch<128>(q, k, v, num, den, m, gnum, gden, gm, dq, dk, dv, scratch, ties, bh, nl, c, s);
+    case 16: return launch<16>(q, k, v, num, den, m, gnum, gden, gm, dq, dk, dv, scratch, ties, stash, bh, nl, c, s);
+    case 32: return launch<32>(q, k, v, num, den, m, gnum, gden, gm, dq, dk, dv, scratch, ties, stash, bh, nl, c, s);
+    case 64: return launch<64>(q, k, v, num, den, m, gnum, gden, gm, dq, dk, dv, scratch, ties, stash, bh, nl, c, s);
+    case 128: return launch<128>(q, k, v, num, den, m, gnum, gden, gm, dq, dk, dv, scratch, ties, stash, bh, nl, c, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Resources of the dq and dk/dv kernels at head dim d, into out[8]: for
+// each, registers a thread, local (spill) bytes a thread, dynamic shared
+// bytes a CTA and resident CTAs an SM (the occupancy calculator).
+extern "C" int repro_hattention_nearfield_bwd_info(int d, int* out) {
+  switch (d) {
+    case 16: return info<16>(out);
+    case 32: return info<32>(out);
+    case 64: return info<64>(out);
+    case 128: return info<128>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

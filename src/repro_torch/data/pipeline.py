@@ -6,6 +6,8 @@ state beyond the step counter.  The token stream mixes Zipf-ish unigram
 draws with short repeated motifs, so the LM loss decreases.  The draws
 come from a CPU ``torch.Generator`` seeded from (seed, step) and are then
 moved to the device, so a batch is the same on the CPU and on the card.
+Like every entry point of the port, a batch lands on the card unless the
+caller asks for another device (``_device.resolve_device``).
 They are not ``jax.random``'s numbers (ROADMAP §3): the structure is
 ``repro``'s, the values differ.
 """
@@ -15,6 +17,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .._device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -31,8 +35,11 @@ def _batch_generator(cfg: DataConfig, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed) & ((1 << 63) - 1))
 
 
-def make_batch(cfg: DataConfig, step: int, *, device="cpu") -> dict:
-    """Returns {"tokens", "labels"}, int64 (B, S) on ``device``, for ``step``."""
+def make_batch(cfg: DataConfig, step: int, *, device=None) -> dict:
+    """Returns {"tokens", "labels"}, int64 (B, S) on ``device``, for ``step``.
+
+    ``device=None`` is the card; it raises where there is none."""
+    device = resolve_device(device)
     gen = _batch_generator(cfg, step)
     b, s, v = cfg.global_batch, cfg.seq_len, cfg.vocab_size
     # Zipf-ish marginal: exponential scores -> ids, P(id) ~ exp(-8 id / v)
@@ -49,15 +56,16 @@ def make_batch(cfg: DataConfig, step: int, *, device="cpu") -> dict:
 
 
 class DataIterator:
-    """Stateful wrapper with an explicit, checkpointable step counter."""
+    """Stateful wrapper with an explicit, checkpointable step counter; its
+    batches land on ``device`` (``None``: the card, as ``make_batch``)."""
 
-    def __init__(self, cfg: DataConfig, start_step: int = 0, **kw):
+    def __init__(self, cfg: DataConfig, start_step: int = 0, *, device=None):
         self.cfg = cfg
         self.step = start_step
-        self.kw = kw
+        self.device = resolve_device(device)
 
     def __next__(self) -> dict:
-        batch = make_batch(self.cfg, self.step, **self.kw)
+        batch = make_batch(self.cfg, self.step, device=self.device)
         self.step += 1
         return batch
 
@@ -65,7 +73,7 @@ class DataIterator:
         return {"step": self.step, "seed": self.cfg.seed}
 
     @classmethod
-    def from_state(cls, cfg: DataConfig, state: dict, **kw):
+    def from_state(cls, cfg: DataConfig, state: dict, *, device=None):
         if state["seed"] != cfg.seed:
             raise ValueError(f"seed mismatch on restore: {state['seed']} != {cfg.seed}")
-        return cls(cfg, start_step=state["step"], **kw)
+        return cls(cfg, start_step=state["step"], device=device)

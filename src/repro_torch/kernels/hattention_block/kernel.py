@@ -53,7 +53,10 @@ def hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm):
     them from these q, k, v (the kernel finds each row's arg-max by
     ``s == m``, recomputing the scores in #11's order).  Returns dq, dk, dv
     (BH, n_leaf, c, D).  One count a call (three CUDA launches: dq, the
-    rows whose max ties, dk and dv).
+    rows whose max ties, dk and dv).  The products run on
+    the tensor cores at fp32 accuracy (3xTF32, split in the kernel); the
+    scores that may attain a row's max are recomputed in #11's order.  No
+    TF32 flag is read or set.
     """
     what = "hattention_nearfield_bwd"
     require_cuda_f32(what, q, k, v, num, den, m, gnum, gden, gm)
@@ -71,12 +74,28 @@ def hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm):
         return dq, dk, dv
     scratch = q.new_empty((3, bh, nl, c))
     ties = torch.empty((bh, nl, c), dtype=torch.int32, device=q.device)
+    stash = q.new_empty((2, bh, nl, c, 2 * c))      # ds and p, from the dq pass to dk, dv
     fn = _build.c_function("hattention_nearfield_bwd", "repro_hattention_nearfield_bwd",
-                           [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                           [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(*(t.data_ptr() for t in (q, k, v, num, den, m, gnum, gden, gm, dq, dk, dv,
-                                         scratch, ties)),
+                                         scratch, ties, stash)),
                  bh, nl, c, d, stream_handle(q.device))
     _build.check(err, what)
     _build.LAUNCHES[what] += 1
     return dq, dk, dv
+
+
+def hattention_nearfield_bwd_info(d: int) -> dict:
+    """Resources of #11b's dq and dk/dv kernels at head dim ``d`` on the
+    current card: registers and local (spill) bytes a thread, dynamic
+    shared bytes a CTA and resident CTAs an SM (CUDA's occupancy calculator)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"hattention_nearfield_bwd_info: head dims {HEAD_DIMS}, got {d}")
+    out = (ctypes.c_int * 8)()
+    fn = _build.c_function("hattention_nearfield_bwd", "repro_hattention_nearfield_bwd_info",
+                           [ctypes.c_int, ctypes.c_void_p])
+    _build.check(fn(d, ctypes.addressof(out)), "hattention_nearfield_bwd_info")
+    keys = ("registers", "spill_bytes", "shared_bytes", "ctas_per_sm")
+    return {kernel: dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, kernel in enumerate(("dq", "dkv"))}

@@ -20,7 +20,8 @@ H-attention near field by ``m`` within 1e-5 absolute and ``num``, ``den``
 within 1e-4 relative (the JAX test's limits; also with a row max that
 rises in later key tiles), its backward #11b against the plain derivative
 within 1e-4 relative per gradient (also with maxima tied inside a leaf and
-across its two blocks), ``h_attention``'s gradient through #11 / #11b
+across its two blocks, a key two ulps below a row's max, and scores up to
+about +-30), ``h_attention``'s gradient through #11 / #11b
 against the plain route within 1e-3 (ACA pivots are on the path), and the
 LM's prefill through the kernel against the same prefill through the plain
 version on the card within 1e-4 relative.
@@ -749,6 +750,81 @@ def test_hattention_nearfield_bwd_kernel_matches_plain_on_card(cuda_device, bh, 
         assert torch.equal(s[..., 3], s[..., 5]) and torch.equal(s[..., 3], s.amax(-1))
     again = hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm)
     assert all(torch.equal(a, b) for a, b in zip(again, got))          # no atomics
+
+
+def _nearfield_bwd_stress(device, bh, nl, c, d, seed, kind: str):
+    """#11b's inputs for two harder cases.  ``near_tie``: rows 9, 40 and
+    c - 1 of every leaf are 2 e_0 and key 3 is 17 e_0, so key 3 is their
+    max (s = 34), and key 5 is key 3 times (1 - 2^-22), whose score 34 -
+    2^-17 lies two ulps below m and must not be taken as a tie (leaf n +
+    1's rows tie exactly across the two blocks on key 3).  Every score of
+    keys 3 and 5 is one rounded product, the same in any order, and stays
+    below key 3's in every row.  ``large``: q scaled by 7.5, so that
+    the scores reach about +-30."""
+    rng = _rs(seed)
+    q = (rng.randn(bh, nl, c, d) / np.sqrt(d)).astype(np.float32)
+    k = rng.randn(bh, nl, c, d).astype(np.float32)
+    v = rng.randn(bh, nl, c, d).astype(np.float32)
+    if kind == "near_tie":
+        for r in (9, 40, c - 1):
+            q[:, :, r] = 0.0
+            q[:, :, r, 0] = 2.0
+        k[:, :, 3] = 0.0
+        k[:, :, 3, 0] = 17.0
+        k[:, :, 5] = k[:, :, 3] * np.float32(1.0 - 2.0 ** -22)
+    else:
+        q *= np.float32(7.5)
+    g = [rng.randn(bh, nl, c, d), rng.randn(bh, nl, c), rng.randn(bh, nl, c)]
+    return [torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+            for a in (q, k, v, *g)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,nl,c,d,kind", [(3, 3, 100, 32, "near_tie"),
+                                            (4, 3, 512, 128, "near_tie"),
+                                            (2, 2, 96, 16, "near_tie"),
+                                            (3, 3, 100, 64, "large"),
+                                            (4, 3, 512, 128, "large"),
+                                            (2, 2, 33, 16, "large")])
+def test_hattention_nearfield_bwd_near_ties_and_large_scores_on_card(cuda_device, bh, nl, c, d,
+                                                                     kind):
+    """#11b against the plain derivative on the card (1e-4 relative per
+    gradient) where a key's score lies two ulps below the row's max (not a
+    tie: the scores are recomputed in #11's order, the other products run
+    on the tensor cores at fp32 accuracy), and with scores up to about
+    +-30; two launches bit-identical."""
+    from repro_torch.kernels.hattention_block.kernel import (hattention_nearfield_bwd_cuda,
+                                                             hattention_nearfield_cuda)
+    from repro_torch.kernels.hattention_block.ref import hattention_nearfield_bwd_ref
+    q, k, v, gnum, gden, gm = _nearfield_bwd_stress(cuda_device, bh, nl, c, d, c + d + 7, kind)
+    num, den, m = hattention_nearfield_cuda(q, k, v)
+    s = torch.einsum("bncd,bnkd->bnck", q, k)
+    if kind == "near_tie":
+        # the case is there: row 9's max is key 3 alone, key 5 two ulps below
+        assert bool((s[:, :, 9, 3] == 34.0).all()) and bool((m[:, :, 9] == 34.0).all())
+        assert bool((s[:, :, 9, 5] == 34.0 - 2.0 ** -17).all())
+    else:
+        assert float(s.abs().amax()) > 20.0
+    got = hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm)
+    want = hattention_nearfield_bwd_ref(q, k, v, num, den, m, gnum, gden, gm)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+    again = hattention_nearfield_bwd_cuda(q, k, v, num, den, m, gnum, gden, gm)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_hattention_nearfield_bwd_resources_on_card(cuda_device):
+    """#11b's kernels at every head dim keep the design's occupancy, two
+    CTAs (16 warps) an SM within 128 registers, where ptxas may spill a few
+    registers (phase 1 of chip_smoke.py records how many), not more."""
+    from repro_torch.kernels.hattention_block.kernel import (HEAD_DIMS,
+                                                             hattention_nearfield_bwd_info)
+    for d in HEAD_DIMS:
+        info = hattention_nearfield_bwd_info(d)
+        for kernel, row in info.items():
+            assert row["ctas_per_sm"] >= 2 and row["registers"] <= 128, (d, kernel, row)
+            assert row["spill_bytes"] <= 32, (d, kernel, row)
 
 
 def _plain_nearfield(monkeypatch):

@@ -25,11 +25,11 @@ DCFG = DataConfig(vocab_size=512, seq_len=64, global_batch=4, seed=3)
 
 
 def test_batch_is_a_pure_function_of_seed_and_step():
-    a, b = make_batch(DCFG, 5), make_batch(DCFG, 5)
+    a, b = make_batch(DCFG, 5, device="cpu"), make_batch(DCFG, 5, device="cpu")
     assert torch.equal(a["tokens"], b["tokens"]) and torch.equal(a["labels"], b["labels"])
-    assert not torch.equal(a["tokens"], make_batch(DCFG, 6)["tokens"])
+    assert not torch.equal(a["tokens"], make_batch(DCFG, 6, device="cpu")["tokens"])
     other_seed = DataConfig(vocab_size=512, seq_len=64, global_batch=4, seed=4)
-    assert not torch.equal(a["tokens"], make_batch(other_seed, 5)["tokens"])
+    assert not torch.equal(a["tokens"], make_batch(other_seed, 5, device="cpu")["tokens"])
     tok, lab = a["tokens"], a["labels"]
     assert tok.shape == lab.shape == (4, 64) and tok.dtype == torch.int64
     assert int(tok.min()) >= 0 and int(tok.max()) < 512
@@ -44,13 +44,24 @@ def test_batch_is_a_pure_function_of_seed_and_step():
 
 
 def test_data_iterator_state_round_trip():
-    it = DataIterator(DCFG)
+    it = DataIterator(DCFG, device="cpu")
     first = [next(it) for _ in range(3)]
     assert it.state() == {"step": 3, "seed": 3}
-    again = DataIterator.from_state(DCFG, {"step": 1, "seed": 3})
+    again = DataIterator.from_state(DCFG, {"step": 1, "seed": 3}, device="cpu")
     assert torch.equal(next(again)["tokens"], first[1]["tokens"])
     with pytest.raises(ValueError, match="seed"):
-        DataIterator.from_state(DCFG, {"step": 1, "seed": 9})
+        DataIterator.from_state(DCFG, {"step": 1, "seed": 9}, device="cpu")
+
+
+def test_batch_lands_on_the_card_unless_asked():
+    """``make_batch`` and ``DataIterator`` run on the card by default, as
+    every entry point of the port does, and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_batch(DCFG, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataIterator(DCFG)
 
 
 def _state(dtype, seed):
@@ -111,16 +122,16 @@ def test_resume_equals_a_straight_run(tmp_path):
     init_state, train_step = make_train_step(cfg, opt_cfg, microbatches=2, device="cpu")
     straight = init_state(torch.Generator().manual_seed(0))
     for step in range(4):
-        straight, _ = train_step(straight, make_batch(dcfg, step))
+        straight, _ = train_step(straight, make_batch(dcfg, step, device="cpu"))
 
     first = init_state(torch.Generator().manual_seed(0))
     for step in range(2):
-        first, _ = train_step(first, make_batch(dcfg, step))
+        first, _ = train_step(first, make_batch(dcfg, step, device="cpu"))
     mgr = CheckpointManager(tmp_path)
     mgr.save(2, first, extra={"data_step": 2})
     resumed, manifest = mgr.restore(init_state(torch.Generator().manual_seed(1)))
     for step in range(manifest["extra"]["data_step"], 4):
-        resumed, _ = train_step(resumed, make_batch(dcfg, step))
+        resumed, _ = train_step(resumed, make_batch(dcfg, step, device="cpu"))
     assert resumed["step"] == straight["step"] == 4
     assert _leaves_equal(resumed, straight)
 

@@ -122,7 +122,7 @@ def test_microbatch_grad_equivalence():
     cfg = get_smoke("qwen2.5-14b").replace(dtype="float32")
     opt_cfg = AdamWConfig(warmup_steps=1, total_steps=10, grad_clip=0.0)
     batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=8,
-                                  seed=1), 0)
+                                  seed=1), 0, device="cpu")
     outs = []
     for mb in (1, 4):
         state, train_step = _smoke_step(cfg, opt_cfg, mb)
@@ -137,7 +137,7 @@ def test_grad_clipping_metric():
     state, train_step = _smoke_step(cfg, AdamWConfig(grad_clip=1e-9, warmup_steps=0,
                                                      total_steps=10))
     batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2,
-                                  seed=0), 0)
+                                  seed=0), 0, device="cpu")
     before = [p.detach().clone() for p in state["params"].parameters()]
     state, m = train_step(state, batch)
     delta = max(float((p.detach() - b).abs().max())
@@ -155,7 +155,7 @@ def test_loss_decreases_qwen_smoke():
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8, seed=0)
     losses = []
     for step in range(40):
-        state, m = train_step(state, make_batch(dcfg, step))
+        state, m = train_step(state, make_batch(dcfg, step, device="cpu"))
         losses.append(float(m["loss"]))
     assert np.mean(losses[-5:]) < losses[0] - 0.4, losses
 
