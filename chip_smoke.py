@@ -92,6 +92,23 @@ Phases (any failure ends the run with a non-zero exit code):
      field on the card (logits within 1e-3, layer 0's h_attention within
      1e-4 relative), and its rows below 2 c_leaf against exact causal
      attention (1e-4);
+  f. the other LM families (run after phase 8): mixtral-8x7b (8 of its 32
+     layers: 32 need 93.4 GB), granite-moe-1b-a400m, zamba2-7b, xlstm-1.3b,
+     whisper-tiny, gemma-7b, smollm-135m, phi3-medium-14b and chameleon-34b
+     (24 of 48 layers: 48 need 68.6 GB) at their published widths, bf16,
+     random from a generator seeded on the card; 2 prompts (8,192 tokens for
+     mixtral, past its 4,096 window; 2,048 for xlstm, whose sLSTM layers step
+     per token; 1,024 frames and tokens for whisper; 4,096 otherwise), one
+     prefill and 15 greedy decode steps through ``generate``: finite logits,
+     a second prefill bit-identical (logits, caches and states), prefill s and
+     tok/s, decode ms per step, peak memory, parameters; mixtral's, zamba2's
+     and xlstm's prefill under ``torch.profiler``; then per model a
+     full-width fp32 model of small depth (2 layers; one period of zamba2 and
+     xlstm; 2 + 2 for whisper; capacity factor 8): the decode step after a
+     prefill of 300 tokens within 1e-3 relative of the train-mode forward's
+     logits at position 300.  No hand-written kernel runs here: ``repro``
+     runs these families outside any ``pallas_call``.  Everything is freed
+     before phase t;
   9. serving (run after phase 3, on the H-matrices of setup):
      ``HMatrixServer(hm_p, max_batch=64)``, precompiled, on 150 requests
      made from the seed (panels of 64, 64 and 32): ``serve()`` and
@@ -148,7 +165,7 @@ Phases (any failure ends the run with a non-zero exit code):
      and 2 more (bit for bit), and ``launch/train.py --smoke`` resuming from
      its directory.
 
-Kernel launch counts are set to 0 before each of phases 2 to 9, m and t and
+Kernel launch counts are set to 0 before each of phases 2 to 9, f, m and t and
 read after it: each phase must have launched the kernels of its own path
 (``PATH_KERNELS``), and every kernel must have run on the main path.
 Kernel, plain and library times are device times: CUDA events around calls
@@ -241,6 +258,8 @@ PATH_KERNELS = {
     "hlu": ("batched_block_cholesky", "batched_recompress", "batched_trsm_panels",
             "batched_schur_dense", "batched_kernel_matmat", "batched_lowrank_matmat"),
     "lm_serve": ("hattention_nearfield",),
+    # none: repro runs the other families outside any pallas_call
+    "families": (),
     "train": ("hattention_nearfield", "hattention_nearfield_bwd"),
     "serve": ("batched_kernel_matmat", "batched_lowrank_matmat", "batched_block_cholesky",
               "batched_block_cholesky_solve"),
@@ -2206,6 +2225,7 @@ def run_lm_serve(out):
                             device="cuda")
     torch.cuda.reset_peak_memory_stats()
     res = generate(params, cfg, prompts, LM_TOKENS)
+    del res["prefill_caches"]      # the grown caches' first LM_PROMPT slots hold the same
     launches_first = _build.LAUNCHES["hattention_nearfield"]
     (logits2, caches2), t_prefill2 = wall_s(lambda: make_prefill_step(cfg)(params, prompts))
     launches_both = _build.LAUNCHES["hattention_nearfield"]
@@ -2285,7 +2305,7 @@ def profile_lm(params, cfg, prompts, rec):
     out = {}
     rec["profile"] = {"prefill": device_profile(lambda: out.update(
         zip(("logits", "caches"), prefill(params, prompts))))}
-    caches = grow_caches(out.pop("caches"), 2)
+    caches = grow_caches(out.pop("caches"), 2, cfg)
     tok = greedy_sample(out.pop("logits"), cfg.vocab_size)
     decode(params, tok, caches, LM_PROMPT)
     rec["profile"]["decode_step"] = device_profile(
@@ -2347,6 +2367,180 @@ def run_lm_checks(state: dict, record):
             f"lm fp32: rows below 2 c_leaf differ from exact attention: {fp32}")
     rec["phase_s"] = time.perf_counter() - state["t_phase"]
     log(f"[lm] phase 8 wall {rec['phase_s']:.1f} s (main path {rec['main_path_s']:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# phase f: the other LM families (serving)
+# ---------------------------------------------------------------------------
+
+# (arch, layers run, prompt tokens): published widths; the depth is cut only
+# where the bf16 weights would not leave room on one card (mixtral's 32
+# layers need 93.4 GB, chameleon's 48 need 68.6 GB); xlstm's prompts are
+# shorter because its sLSTM layers run one step per token
+FAMILY_RUNS = (("mixtral-8x7b", 8, 8192), ("granite-moe-1b-a400m", 24, 4096),
+               ("zamba2-7b", 81, 4096), ("xlstm-1.3b", 48, 2048), ("whisper-tiny", 4, 1024),
+               ("gemma-7b", 28, 4096), ("smollm-135m", 30, 4096), ("phi3-medium-14b", 40, 4096),
+               ("chameleon-34b", 24, 4096))
+FAMILY_BATCH, FAMILY_TOKENS = 2, 16
+# the fp32 decode-consistency check: full width, a small depth (2 layers; one
+# period of zamba2 and xlstm; 2 + 2 for whisper), S = 300 (no multiple of
+# ssm_chunk), repro's own test's capacity factor so that no assignment drops
+FAMILY_CHECK_LAYERS = {"zamba2-7b": 6, "xlstm-1.3b": 8}
+FAMILY_CHECK_SEQ, FAMILY_CHECK_CF, FAMILY_CHECK_LIMIT = 300, 8.0, 1e-3
+# prefills profiled (MoE dispatch and banded chunks, the SSD chunks); xlstm's
+# sLSTM loop is profiled on one layer over its first FAMILY_SLSTM_STEPS
+# tokens (a whole prefill is ~330,000 launches, too many to trace here)
+FAMILY_PROFILED = ("mixtral-8x7b", "zamba2-7b")
+FAMILY_SLSTM_STEPS = 256
+FAMILY_DEV = "cuda"    # a CPU rehearsal of the phase's control flow sets "cpu"
+
+
+def cache_tensors(tree) -> list:
+    """The tensors of a cache tree (lists, tuples and dicts of tensors), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for key in sorted(tree) for t in cache_tensors(tree[key])]
+    return [t for sub in tree for t in cache_tensors(sub)]
+
+
+def family_inputs(cfg, batch: int, seq: int, gen):
+    """Prompts and, for an encoder-decoder, as many encoder frames."""
+    prompts = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=FAMILY_DEV)
+    frames = (torch.randn((batch, seq, cfg.d_model), generator=gen, device=FAMILY_DEV)
+              if cfg.is_encoder_decoder else None)
+    return prompts, frames
+
+
+def run_family(name: str, layers: int, prompt: int, out: dict) -> None:
+    """One model of phase f: bf16 at published widths, one prefill and 15
+    greedy decode steps through ``generate``, then a second prefill that
+    must give the same bits."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import count_params, get_model
+    from repro_torch.models.xlstm import slstm_block
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    t_model = time.perf_counter()
+    cfg = get_arch(name).replace(n_layers=layers)
+    gen = torch.Generator(device=FAMILY_DEV).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = wall_s(lambda: get_model(cfg, FAMILY_DEV)["init_params"](gen))
+    prompts, frames = family_inputs(cfg, FAMILY_BATCH, prompt, gen)
+    res = generate(params, cfg, prompts, FAMILY_TOKENS, frames)
+    (logits2, caches2), t_prefill2 = wall_s(
+        lambda: make_prefill_step(cfg)(params, prompts, frames))
+    first, second = cache_tensors(res["prefill_caches"]), cache_tensors(caches2)
+    identical = (torch.equal(logits2, res["prefill_logits"]) and len(first) == len(second)
+                 and all(torch.equal(a, b) for a, b in zip(first, second)))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (res["prefill_logits"], logits2, res["logits"]))
+    tokens = res["tokens"]
+    n_tok = FAMILY_BATCH * prompt
+    rec = {"layers": layers, "published_layers": get_arch(name).n_layers,
+           "params": count_params(params), "dtype": cfg.dtype, "batch": FAMILY_BATCH,
+           "prompt_len": prompt, "init_s": t_init, "prefill_s_first": res["prefill_s"],
+           "prefill_s": t_prefill2, "prefill_tok_per_s": n_tok / t_prefill2,
+           "decode_ms_per_step": res["decode_s"] / (FAMILY_TOKENS - 1) * 1e3,
+           "cache_bytes": sum(t.numel() * t.element_size() for t in cache_tensors(res["caches"])),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "prefills_bit_identical": identical, "logits_finite": finite,
+           "first_row_tokens": tokens[0].tolist()}
+    out[name] = rec
+    log(f"[families] {name}: {rec['params']:,} parameters ({layers} of "
+        f"{rec['published_layers']} layers, bf16) made in {t_init:.2f} s; prefill "
+        f"{FAMILY_BATCH} x {prompt}: first {res['prefill_s']:.3f} s, again {t_prefill2:.3f} s "
+        f"({rec['prefill_tok_per_s']:.0f} tok/s); decode {rec['decode_ms_per_step']:.2f} ms per "
+        f"step; caches {rec['cache_bytes'] / 1e9:.3f} GB; peak {rec['peak_memory_gib']:.2f} GiB; "
+        f"prefills bit-identical {identical}; logits finite {finite}")
+    require(finite, f"families {name}: non-finite logits")
+    require(identical, f"families {name}: two prefills differ")
+    require(tokens.shape == (FAMILY_BATCH, FAMILY_TOKENS) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size, f"families {name}: bad tokens")
+    # outside the checked run: one more decode step (slot prompt + 15 is free)
+    # and the prefill or the sLSTM loop, under the profiler
+    caches, tok = res["caches"], tokens[:, -1:]
+    profiles = {"decode_step": device_profile(
+        lambda: make_decode_step(cfg)(params, tok, caches, prompt + FAMILY_TOKENS - 1), top=8)}
+    del res, caches2, logits2, first, second
+    if name in FAMILY_PROFILED:
+        profiles["prefill"] = device_profile(
+            lambda: make_prefill_step(cfg)(params, prompts, frames), top=8)
+    if "slstm" in cfg.layer_kinds:
+        block = params.layers[cfg.layer_kinds.index("slstm")]
+        x = torch.randn((FAMILY_BATCH, FAMILY_SLSTM_STEPS, cfg.d_model), generator=gen,
+                        device=FAMILY_DEV).to(getattr(torch, cfg.dtype))
+        with torch.inference_mode():
+            slstm_block(block.slstm, cfg, x, mode="prefill")       # warm
+            profiles["slstm_layer"] = device_profile(
+                lambda: slstm_block(block.slstm, cfg, x, mode="prefill"), top=8)
+        sl = profiles["slstm_layer"]
+        sl["steps"] = FAMILY_SLSTM_STEPS
+        sl["host_us_per_step"] = sl["host_s"] / FAMILY_SLSTM_STEPS * 1e6
+        sl["device_us_per_step"] = sl["busy_ms"] / FAMILY_SLSTM_STEPS * 1e3
+        sl["launches_per_step"] = sl["kernel_launches"] / FAMILY_SLSTM_STEPS
+    rec["profile"] = profiles
+    for part, prof in profiles.items():
+        log(f"[families profile] {name} {part}: host {prof['host_s'] * 1e3:.2f} ms, "
+            f"{prof['kernel_launches']} kernels {prof['device_ms']:.2f} ms, device idle "
+            f"{prof['idle_share']:.3f}")
+        for k in prof["top"]:
+            log(f"[families profile]   {k['ms']:10.3f} ms  {k['calls']:7d}x  {k['name']}")
+    rec["main_wall_s"] = time.perf_counter() - t_model
+
+
+def check_family_decode(name: str, out: dict) -> None:
+    """A full-width fp32 model of small depth: the decode step after a
+    prefill of S = 300 tokens against the train-mode forward's logits at
+    position 300, within 1e-3 relative."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import grow_caches
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    t_check = time.perf_counter()
+    arch = get_arch(name)
+    if arch.is_encoder_decoder:
+        depth = {"n_layers": 2, "n_enc_layers": 2}
+    else:
+        depth = {"n_layers": FAMILY_CHECK_LAYERS.get(name, 2)}
+    cfg = arch.replace(dtype="float32", moe_capacity_factor=FAMILY_CHECK_CF, **depth)
+    model = get_model(cfg, FAMILY_DEV)
+    gen = torch.Generator(device=FAMILY_DEV).manual_seed(SEED)
+    params = model["init_params"](gen)
+    s = FAMILY_CHECK_SEQ
+    tokens, frames = family_inputs(cfg, FAMILY_BATCH, s + 1, gen)
+    frames = None if frames is None else frames[:, :s]
+    with torch.inference_mode():
+        train_logits, _ = model["forward"](params, tokens=tokens, embeds=frames, mode="train")
+        _, caches = make_prefill_step(cfg)(params, tokens[:, :s], frames)
+        caches = grow_caches(caches, 1, cfg)
+        dec_logits, _ = make_decode_step(cfg)(params, tokens[:, s:], caches, s)
+    err = rel_err(dec_logits[:, 0], train_logits[:, s])
+    out[name]["fp32_decode"] = {"layers": cfg.n_layers, "seq": s, "rel_err": err,
+                                "finite": bool(torch.isfinite(dec_logits).all()),
+                                "wall_s": time.perf_counter() - t_check}
+    log(f"[families fp32] {name} ({cfg.n_layers} layers, full width): decode logits at "
+        f"position {s} against the train-mode forward: rel err {err:.3e} (limit "
+        f"{FAMILY_CHECK_LIMIT}); model wall {out[name]['main_wall_s']:.1f} s, check "
+        f"{out[name]['fp32_decode']['wall_s']:.1f} s")
+    require(out[name]["fp32_decode"]["finite"] and err <= FAMILY_CHECK_LIMIT,
+            f"families {name}: fp32 decode differs from the forward: {err}")
+
+
+def run_families(record) -> None:
+    """Phase f: the nine other assigned architectures served on the card;
+    everything they allocate is freed before the next phase."""
+    t_phase = time.perf_counter()
+    out = record.setdefault("families", {})
+    for name, layers, prompt in FAMILY_RUNS:
+        run_family(name, layers, prompt, out)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_family_decode(name, out)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[families] phase f wall {out['phase_s']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3169,8 +3363,8 @@ def run_mesh(pts_k, hm_p, hm_k, record) -> None:
 
 def main(record: dict) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="0123456789mt",
-                        help="phases to run (default all: 0123456789mt); 0 is always run")
+    parser.add_argument("--phases", default="0123456789fmt",
+                        help="phases to run (default all: 0123456789fmt); 0 is always run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -3371,19 +3565,22 @@ def main(record: dict) -> int:
         count_launches("hlu")
         run_hlu_measurements(hm_hlu, pre, f_k, rng, record)
         del hm_hlu, pre
-    if "8" in args.phases:
-        del pts_p, pts_k
+    if set(args.phases) & set("8ft"):
+        pts_p = pts_k = None
         torch.cuda.empty_cache()
+    if "8" in args.phases:
         _build.reset_launches()
         lm_state = run_lm_serve(record)
         count_launches("lm_serve")
         run_lm_checks(lm_state, record)
         del lm_state
         torch.cuda.empty_cache()
-    if "t" in args.phases:
-        if "8" not in args.phases:
-            del pts_p, pts_k
+    if "f" in args.phases:
+        _build.reset_launches()
+        run_families(record)
+        count_launches("families")
         torch.cuda.empty_cache()
+    if "t" in args.phases:
         for layers in (TRAIN_LAYERS, TRAIN_LAYERS_CUT):
             _build.reset_launches()
             train_state = run_train(layers, record)

@@ -1,23 +1,26 @@
-"""Architecture registry: ``--arch <id>`` resolution for the port's launchers.
-
-The names are ``repro``'s.  Only the configs of the families the port can
-run are copied (``dense`` with attention backend ``full`` or ``hmatrix``:
-qwen2.5-14b and qwen2.5-14b-hmatrix); the other names raise
-``NotImplementedError``.
-"""
+"""Architecture registry: ``--arch <id>`` resolution for the port's launchers
+(``repro.configs.registry`` in the port: the same names, configs and cells)."""
 from __future__ import annotations
 
-from . import qwen2_5_14b
+from . import (chameleon_34b, gemma_7b, granite_moe_1b, mixtral_8x7b, phi3_medium_14b,
+               qwen2_5_14b, smollm_135m, whisper_tiny, xlstm_1_3b, zamba2_7b)
 from .base import SHAPES, ArchConfig, ShapeConfig, shape_applicable
 
 _MODULES = {
+    "whisper-tiny": whisper_tiny,
+    "gemma-7b": gemma_7b,
+    "smollm-135m": smollm_135m,
+    "phi3-medium-14b": phi3_medium_14b,
     "qwen2.5-14b": qwen2_5_14b,
+    "granite-moe-1b-a400m": granite_moe_1b,
+    "mixtral-8x7b": mixtral_8x7b,
+    "chameleon-34b": chameleon_34b,
+    "xlstm-1.3b": xlstm_1_3b,
+    "zamba2-7b": zamba2_7b,
 }
 
-# repro's other assigned architectures, whose families the port does not run yet
-_NOT_PORTED = ("whisper-tiny", "gemma-7b", "smollm-135m", "phi3-medium-14b",
-               "granite-moe-1b-a400m", "mixtral-8x7b", "chameleon-34b", "xlstm-1.3b",
-               "zamba2-7b")
+# The 10 assigned architectures (the 40 cells iterate these).
+ASSIGNED = tuple(_MODULES)
 
 # Extra selectable configs (beyond-paper variants).
 _EXTRA = {
@@ -26,13 +29,7 @@ _EXTRA = {
 
 
 def list_archs() -> list[str]:
-    return list(_NOT_PORTED) + list(_MODULES) + list(_EXTRA)
-
-
-def _unknown(name: str):
-    if name in _NOT_PORTED:
-        return NotImplementedError(f"arch {name!r}: not yet ported to repro_torch")
-    return KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    return list(ASSIGNED) + list(_EXTRA)
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -40,7 +37,7 @@ def get_arch(name: str) -> ArchConfig:
         return _MODULES[name].ARCH
     if name in _EXTRA:
         return _EXTRA[name]
-    raise _unknown(name)
+    raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
 
 
 def get_smoke(name: str) -> ArchConfig:
@@ -48,7 +45,7 @@ def get_smoke(name: str) -> ArchConfig:
         return _MODULES[name].smoke()
     if name == "qwen2.5-14b-hmatrix":
         return qwen2_5_14b.smoke_hmatrix()
-    raise _unknown(name)
+    raise KeyError(f"unknown arch {name!r}")
 
 
 def get_shape(name: str) -> ShapeConfig:
@@ -57,5 +54,14 @@ def get_shape(name: str) -> ShapeConfig:
     return SHAPES[name]
 
 
-__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "shape_applicable", "list_archs",
-           "get_arch", "get_smoke", "get_shape"]
+def iter_cells():
+    """All (arch, shape, runs, reason) assignment cells — 40 total."""
+    for arch_name in ASSIGNED:
+        arch = get_arch(arch_name)
+        for shape in SHAPES.values():
+            runs, reason = shape_applicable(arch, shape)
+            yield arch, shape, runs, reason
+
+
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "ASSIGNED", "shape_applicable",
+           "list_archs", "get_arch", "get_smoke", "get_shape", "iter_cells"]

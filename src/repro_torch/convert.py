@@ -11,9 +11,11 @@ factors.  Keys of ``arrays`` (``{l}`` is a tree level):
     level, dense_blocks (n_dense, 2) int32, aca_levels/{l} (B_l, 2) int32,
     and, for a precomputed H-matrix, U/{l} (B_l, m, k), V/{l} (B_l, m, k) f32.
 
-``lm_params_from_arrays``: the port's ``LM`` from ``repro``'s LM parameter
-pytree (``repro.models.lm.init_params``) as NumPy arrays;
-``train_state_from_arrays``: the port's train state from ``repro``'s.
+``lm_params_from_arrays``: the port's ``LM`` (every block kind) or, for an
+encoder-decoder config, ``EncDec`` from ``repro``'s parameter pytree
+(``repro.models.lm.init_params`` / ``repro.models.encdec.init_params``) as
+NumPy arrays; ``train_state_from_arrays``: the port's train state from
+``repro``'s.
 """
 from __future__ import annotations
 
@@ -25,8 +27,12 @@ from .core.clustering import ClusterTree
 from .core.factor_store import FactorStore
 from .core.geometry import get_kernel
 from .core.hmatrix import HMatrix, block_groups
+from .models.encdec import DecLayer, EncDec, EncLayer
 from .models.layers import MLP, Attention, Norm
-from .models.lm import LM, Block
+from .models.lm import LM, Block, RecurrentBlock
+from .models.mamba2 import Mamba
+from .models.moe import MoE
+from .models.xlstm import MLSTM, SLSTM
 
 
 def _levels_of(arrays: dict, prefix: str) -> list[int]:
@@ -69,50 +75,85 @@ def _norm(tree: dict, t) -> Norm:
     return Norm(t(tree["w"]), t(tree["b"]) if "b" in tree else None)
 
 
-def _block(tree: dict, t) -> Block:
-    attn = tree["attn"]
-    mlp = tree.get("mlp")
-    return Block(_norm(tree["ln1"], t),
-                 Attention(*(t(attn[name]) for name in ("wq", "wk", "wv", "wo")),
-                           **{name: t(attn[name]) for name in ("bq", "bk", "bv")
-                              if name in attn}),
-                 _norm(tree["ln2"], t),
-                 None if mlp is None else MLP(t(mlp["wu"]), t(mlp["wd"]),
-                                              wg=t(mlp["wg"]) if "wg" in mlp else None))
+def _attention(tree: dict, t) -> Attention:
+    return Attention(*(t(tree[name]) for name in ("wq", "wk", "wv", "wo")),
+                     **{name: t(tree[name]) for name in ("bq", "bk", "bv") if name in tree})
 
 
-def lm_params_from_arrays(arrays: dict, cfg, *, device) -> LM:
-    """The port's :class:`LM` holding ``repro``'s LM parameters.
+def _mlp(tree: dict, t) -> MLP:
+    return MLP(t(tree["wu"]), t(tree["wd"]), wg=t(tree["wg"]) if "wg" in tree else None)
 
-    ``arrays`` is ``repro.models.lm.init_params(key, cfg)`` with every leaf
-    a NumPy array: ``embed``, ``final_norm/w``, ``lm_head`` (untied), and per
-    pattern position ``pattern[pos]`` with the periods stacked on the leading
-    axis (``ln1/w``, ``attn/{wq, wk, wv, wo, bq, bk, bv}``, ``ln2/w``,
-    ``mlp/{wg, wu, wd}``), plus ``tail`` blocks.  Layer ``i`` is period
-    ``i // len(pattern)`` of position ``i % len(pattern)``, then the tail.
-    Tensors keep the arrays' dtype (NumPy has no bfloat16: hand bfloat16
-    parameters over as float32).
+
+# the mixers of the recurrent kinds: their class and ``repro``'s leaf names in order
+_MIXERS = {"mamba": (Mamba, ("w_in", "w_out", "a_log", "d_skip", "dt_bias")),
+           "mlstm": (MLSTM, ("w_up", "wq", "wk", "wv", "w_if", "w_down", "f_bias")),
+           "slstm": (SLSTM, ("w_x", "r_h", "bias", "w_out"))}
+
+
+def _block(tree: dict, t, kind: str = "dense"):
+    if kind in _MIXERS:
+        cls, names = _MIXERS[kind]
+        return RecurrentBlock(kind, _norm(tree["ln"], t),
+                              cls(*(t(tree[kind][name]) for name in names)))
+    mlp, moe = tree.get("mlp"), tree.get("moe")
+    return Block(_norm(tree["ln1"], t), _attention(tree["attn"], t), _norm(tree["ln2"], t),
+                 None if mlp is None else _mlp(mlp, t),
+                 None if moe is None else MoE(*(t(moe[n]) for n in ("router", "wg", "wu", "wd"))))
+
+
+def _sliced(tree, index):
+    """Entry ``index`` of every leaf of a tree stacked on its leading axis."""
+    if isinstance(tree, dict):
+        return {key: _sliced(val, index) for key, val in tree.items()}
+    return tree[index]
+
+
+def lm_params_from_arrays(arrays: dict, cfg, *, device):
+    """The port's model holding ``repro``'s parameters.
+
+    For a decoder-only config, ``arrays`` is ``repro.models.lm.init_params(key,
+    cfg)`` with every leaf a NumPy array: ``embed``, ``final_norm/w``,
+    ``lm_head`` (untied), per pattern position ``pattern[pos]`` with the
+    periods stacked on the leading axis (``{}`` at a ``shared_attn``
+    position), ``shared`` (the ``shared_attn`` block) and ``tail`` blocks.
+    Layer ``i`` is period ``i // len(pattern)`` of position ``i %
+    len(pattern)``, then the tail.  For an encoder-decoder config it is
+    ``repro.models.encdec.init_params``'s tree (``enc_layers`` and
+    ``dec_layers`` stacked on the leading axis).  Tensors keep the arrays'
+    dtype (NumPy has no bfloat16: hand bfloat16 parameters over as float32).
     """
     dev = torch.device(device)
-    pattern = cfg.block_pattern
-    n_periods = cfg.n_layers // len(pattern)
-    for kind in cfg.layer_kinds:
-        if kind != "dense":
-            raise NotImplementedError(f"block kind {kind!r}: not yet ported to repro_torch")
 
     def t(a):
         return torch.from_numpy(np.array(a)).to(dev)
 
-    def sliced(tree, period):
-        if isinstance(tree, dict):
-            return {key: sliced(val, period) for key, val in tree.items()}
-        return tree[period]
-
-    layers = [_block(sliced(arrays["pattern"][pos], period), t)
-              for period in range(n_periods) for pos in range(len(pattern))]
-    layers += [_block(tree, t) for tree in arrays["tail"]]
+    if cfg.is_encoder_decoder:
+        return _encdec_from_arrays(arrays, cfg, t)
+    pattern = cfg.block_pattern
+    n_periods = cfg.n_layers // len(pattern)
+    layers = [torch.nn.Module() if kind == "shared_attn"
+              else _block(_sliced(arrays["pattern"][pos], period), t, kind)
+              for period in range(n_periods) for pos, kind in enumerate(pattern)]
+    tail_kinds = cfg.layer_kinds[n_periods * len(pattern):]
+    layers += [torch.nn.Module() if kind == "shared_attn" else _block(tree, t, kind)
+               for tree, kind in zip(arrays["tail"], tail_kinds)]
+    shared = _block(arrays["shared"], t) if "shared" in arrays else None
     head = None if cfg.tie_embeddings else t(arrays["lm_head"])
-    return LM(cfg, t(arrays["embed"]), _norm(arrays["final_norm"], t), head, layers)
+    return LM(cfg, t(arrays["embed"]), _norm(arrays["final_norm"], t), head, layers, shared)
+
+
+def _encdec_from_arrays(arrays: dict, cfg, t) -> EncDec:
+    enc = [_sliced(arrays["enc_layers"], i) for i in range(cfg.n_enc_layers)]
+    dec = [_sliced(arrays["dec_layers"], i) for i in range(cfg.n_layers)]
+    return EncDec(
+        cfg,
+        [EncLayer(_norm(lp["ln1"], t), _attention(lp["attn"], t), _norm(lp["ln2"], t),
+                  _mlp(lp["mlp"], t)) for lp in enc],
+        [DecLayer(_norm(lp["ln1"], t), _attention(lp["self_attn"], t), _norm(lp["ln_x"], t),
+                  _attention(lp["cross_attn"], t), _norm(lp["ln2"], t), _mlp(lp["mlp"], t))
+         for lp in dec],
+        t(arrays["embed"]), t(arrays["dec_pos"]), _norm(arrays["enc_norm"], t),
+        _norm(arrays["dec_norm"], t))
 
 
 def train_state_from_arrays(arrays: dict, cfg, *, device) -> dict:

@@ -4,11 +4,15 @@
         --batch 2 --prompt-len 8192 --decode-steps 16          # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b-hmatrix \
         --smoke --device cpu --prompt-len 256                   # plain path, CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
 
-The flags are ``repro.launch.serve``'s plus ``--device`` (default: the CUDA
-card; raises without one) and ``--dtype`` (default: the config's, float32
-with ``--smoke`` as in ``repro``).  Parameters and prompts are random from a
-``torch.Generator`` seeded with ``--seed`` on the device.
+``--arch`` takes every name of ``configs.registry.list_archs()``: the ten
+assigned architectures and qwen2.5-14b-hmatrix.  The flags are
+``repro.launch.serve``'s plus ``--device`` (default: the CUDA card; raises
+without one) and ``--dtype`` (default: the config's, float32 with
+``--smoke`` as in ``repro``).  Parameters, prompts and (encoder-decoder
+configs) the encoder frames, as many as prompt tokens as in ``repro``, are
+random from a ``torch.Generator`` seeded with ``--seed`` on the device.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 from .._device import resolve_device
 from ..configs.registry import get_arch, get_smoke, list_archs
 from ..models.api import get_model
+from ..models.lm import ATTN_KINDS
 from ..serve.step import greedy_sample, make_decode_step, make_prefill_step
 
 
@@ -28,29 +33,41 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def grow_caches(caches: list, extra: int) -> list:
-    """Caches of capacity S -> S + ``extra`` (zero slots appended), for decoding."""
+def grow_caches(caches: list, extra: int, cfg) -> list:
+    """Caches of capacity S -> S + ``extra`` for decoding: zero slots appended
+    to the self-attention K / V only (the attention kinds' entries of a
+    decoder-only model, the ``"self"`` K / V of an encoder-decoder).  The
+    recurrent states and the cross-attention K / V are passed on as they are.
+    ``repro.launch.serve`` pads every array whose third-from-last axis is S,
+    cross K / V included; its models' own forward is the reference here
+    (ROADMAP §3)."""
     def grow(t):
         out = t.new_zeros((t.shape[0], t.shape[1] + extra) + tuple(t.shape[2:]))
         out[:, :t.shape[1]] = t
         return out
-    return [(grow(k), grow(v)) for k, v in caches]
+
+    if cfg.is_encoder_decoder:
+        return [{"self": tuple(grow(t) for t in c["self"]), "cross": c["cross"]} for c in caches]
+    return [tuple(grow(t) for t in c) if kind in ATTN_KINDS else c
+            for c, kind in zip(caches, cfg.layer_kinds)]
 
 
-def generate(params, cfg, prompts: torch.Tensor, decode_steps: int) -> dict:
-    """One prefill of ``prompts`` (B, S) and ``decode_steps - 1`` greedy
-    decode steps, as ``repro.launch.serve`` runs them.  Returns the tokens
-    (B, decode_steps), the prefill's last-position logits, the caches after
-    decoding, the last step's logits, and host-clock seconds of prefill (with growing the caches)
-    and of the decode steps, each ending in a device synchronisation."""
+def generate(params, cfg, prompts: torch.Tensor, decode_steps: int, frames=None) -> dict:
+    """One prefill of ``prompts`` (B, S) (and, for an encoder-decoder, its
+    encoder ``frames`` (B, S_enc, D)) and ``decode_steps - 1`` greedy decode
+    steps, as ``repro.launch.serve`` runs them.  Returns the tokens (B,
+    decode_steps), the prefill's last-position logits and caches, the caches
+    after decoding, the last step's logits, and host-clock seconds of
+    prefill (with growing the caches) and of the decode steps, each ending
+    in a device synchronisation."""
     dev = prompts.device
     b, s = prompts.shape
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, prompts)
-    caches = grow_caches(caches, decode_steps)
+    logits, prefill_caches = prefill(params, prompts, frames)
+    caches = grow_caches(prefill_caches, decode_steps, cfg)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits
@@ -64,8 +81,9 @@ def generate(params, cfg, prompts: torch.Tensor, decode_steps: int) -> dict:
     _sync(dev)
     t_dec = time.perf_counter() - t0
     return {"tokens": torch.cat(generated, dim=1), "prefill_logits": prefill_logits,
-            "logits": logits, "caches": caches, "prefill_s": t_prefill, "decode_s": t_dec,
-            "batch": b, "prompt_len": s, "decode_steps": decode_steps}
+            "prefill_caches": prefill_caches, "logits": logits, "caches": caches,
+            "prefill_s": t_prefill, "decode_s": t_dec, "batch": b, "prompt_len": s,
+            "decode_steps": decode_steps}
 
 
 def main(argv=None) -> dict:
@@ -95,11 +113,12 @@ def main(argv=None) -> dict:
     model = get_model(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model["init_params"](gen)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=gen, device=dev)
-
-    out = generate(params, cfg, prompts, args.decode_steps)
     b, s = args.batch, args.prompt_len
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    frames = (torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+              if cfg.is_encoder_decoder else None)
+
+    out = generate(params, cfg, prompts, args.decode_steps, frames)
     print(f"prefill: {b}x{s} tokens in {out['prefill_s']:.3f}s "
           f"({b * s / out['prefill_s']:.0f} tok/s)")
     print(f"decode: {args.decode_steps - 1} steps in {out['decode_s']:.3f}s "

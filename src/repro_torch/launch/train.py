@@ -30,7 +30,7 @@ from ..runtime.checkpoint import CheckpointManager
 from ..runtime.fault_tolerance import PreemptionHandler
 from ..serve.faults import StragglerMonitor, run_with_restarts
 from ..train.optimizer import AdamWConfig
-from ..train.step import make_train_step
+from ..train.step import make_train_step, require_trainable
 
 DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
 
@@ -113,6 +113,7 @@ def main(argv=None):
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     if args.smoke:
         cfg = cfg.replace(dtype="float32")
+    require_trainable(cfg)      # before the restart loop, which would retry it
     return run_with_restarts(lambda: train_loop(cfg, args, device),
                              max_restarts=args.max_restarts,
                              on_restart=lambda n, e: print(f"[restart {n}] after: {e}"))

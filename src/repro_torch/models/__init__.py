@@ -1,1 +1,1 @@
-"""The decoder-only LM of the port (``repro.models`` in PyTorch; dense blocks)."""
+"""The LM families of the port (``repro.models`` in PyTorch)."""

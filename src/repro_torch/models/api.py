@@ -2,29 +2,34 @@
 from __future__ import annotations
 
 from .._device import resolve_device
-from . import lm
+from . import encdec, lm
 
 
 def get_model(cfg, device=None) -> dict:
-    """The functions of the decoder-only family for ``cfg`` on ``device``
-    (``cuda`` unless the caller asks; raises without a card):
-    ``init_params(generator)`` (the generator must live on that device),
-    ``forward(params, **kw)`` and ``init_caches(batch, max_seq)``."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not yet ported "
-                                  "to repro_torch")
+    """The functions of ``cfg``'s family (``encdec`` for encoder-decoder
+    configs, else ``lm``) on ``device`` (``cuda`` unless the caller asks;
+    raises without a card): ``init_params(generator)`` (the generator must
+    live on that device), ``forward(params, **kw)`` and
+    ``init_caches(batch, max_seq, enc_seq=None)`` (``enc_seq``, the encoder
+    frames, defaults to ``max_seq``; decoder-only models ignore it)."""
     dev = resolve_device(device)
+    family = encdec if cfg.is_encoder_decoder else lm
 
     def init_params(gen):
         if gen.device.type != dev.type:
             raise ValueError(f"init_params: the generator lives on {gen.device}, the model on "
                              f"{dev}")
-        return lm.init_params(gen, cfg)
+        return family.init_params(gen, cfg)
+
+    def init_caches(batch, max_seq, enc_seq=None):
+        if cfg.is_encoder_decoder:
+            return encdec.init_caches(cfg, batch, max_seq, enc_seq or max_seq, device=dev)
+        return lm.init_caches(cfg, batch, max_seq, device=dev)
 
     return {
         "init_params": init_params,
-        "forward": lambda params, **kw: lm.forward(params, cfg, **kw),
-        "init_caches": lambda batch, max_seq: lm.init_caches(cfg, batch, max_seq, device=dev),
+        "forward": lambda params, **kw: family.forward(params, cfg, **kw),
+        "init_caches": init_caches,
     }
 
 

@@ -9,9 +9,11 @@ Attention paths:
   * ``chunked_attention`` — flash-style online-softmax loop over KV chunks
     with ``repro``'s custom VJP (prompts up to ``h_c_leaf`` and backend
     ``full``);
+  * ``banded_attention`` — sliding-window attention that computes only the
+    band (a loop over q chunks, each on a (chunk + window) KV span): backend
+    ``swa``, causal;
   * ``core.hattention.h_attention`` — backend ``hmatrix`` beyond ``h_c_leaf``;
   * ``decode_attention`` — single-token attention over the KV cache.
-``banded_attention`` (backend ``swa``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -128,6 +130,13 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, dtype, device=None):
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +258,44 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _FlashAttention.apply(q, k, v, causal, window, chunk, q_offset)
 
 
+def banded_attention(q, k, v, *, window: int, chunk: int = 1024, q_offset: int = 0):
+    """Sliding-window attention that computes only the band: a loop over q
+    chunks, each step on a (chunk + window) KV span (``repro``'s scan with
+    ``dynamic_slice``), O(S * window) score work.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D).  Returns (B, Sq, H, D).
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    chunk = min(chunk, sq)
+    if sq % chunk != 0:
+        raise ValueError(f"banded_attention: {sq} queries do not split into chunks of {chunk}")
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    span = min(window + chunk, sk)
+    kf, vf = k.float(), v.float()
+    qg = _gqa_split(q, hkv).float() * scale                   # (B,Sq,Hkv,G,D)
+    outs = []
+    for qi in range(sq // chunk):
+        q_blk = qg[:, qi * chunk:(qi + 1) * chunk]
+        q_pos = q_offset + qi * chunk + torch.arange(chunk, device=q.device)
+        start = min(max(qi * chunk + chunk - span, 0), sk - span)
+        k_blk = kf[:, start:start + span]
+        v_blk = vf[:, start:start + span]
+        k_pos = start + torch.arange(span, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk)
+        s = s + _mask_bias(q_pos, k_pos, True, window)[None, None, None]
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", p, v_blk) / torch.clamp(
+            p.sum(-1), min=1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, chunk, h, d))   # (B,chunk,H,D)
+    # ``repro`` lays the chunks out as (B, chunk, nq) and reads that as (B,
+    # nq, chunk): with several chunks, output row c * nq + n holds query n *
+    # chunk + c.  The port computes what ``repro`` computes (ROADMAP §3).
+    return torch.stack(outs, dim=2).reshape(b, sq, h, d).to(q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len: int):
     """One-token attention over the cache.  q: (B, 1, H, D); caches
     (B, S, Hkv, D).  The cache is read in its own dtype; scores, the
@@ -303,33 +350,39 @@ def _proj_qkv(p: Attention, cfg, x):
 
 
 def attention_block(p: Attention, cfg, x, *, positions, mode: str, cache=None,
-                    cache_len: int | None = None):
+                    cache_len: int | None = None, kv_override=None, causal: bool = True):
     """Full attention block.  Returns (out, new_cache_kv | None).
 
     mode: "train" | "prefill" | "decode".
     cache: (k_cache, v_cache) of shape (B, S_max, Hkv, D) for decode; the new
     token's K and V are written into it in place at slot ``cache_len`` (the
     caller hands the cache over, as ``repro``'s decode step donates it).
+    kv_override: (k, v) for cross-attention (the encoder's); RoPE then
+    applies to q only, and there is no cache to write.
+    Decode attends over the whole cache whatever the backend: ``repro``
+    windows only prefill (ROADMAP §3).
     """
     b, s, _ = x.shape
     q, k, v = _proj_qkv(p, cfg, x)
+    if kv_override is not None:
+        k, v = kv_override
     q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = apply_rope(k, positions, cfg.rope_theta)
 
-    if mode == "decode":
+    if mode == "decode" and kv_override is None:
         k_cache, v_cache = cache
         k_cache[:, cache_len:cache_len + s] = k.to(k_cache.dtype)
         v_cache[:, cache_len:cache_len + s] = v.to(v_cache.dtype)
         out = decode_attention(q, k_cache, v_cache, cache_len + 1)
         new_cache = (k_cache, v_cache)
     else:
-        if cfg.attention_backend == "swa" and cfg.sliding_window > 0:
-            raise NotImplementedError("attention backend 'swa' (banded_attention): "
-                                      "not yet ported to repro_torch")
-        if cfg.attention_backend == "hmatrix" and s > cfg.h_c_leaf:
+        if cfg.attention_backend == "swa" and cfg.sliding_window > 0 and causal:
+            out = banded_attention(q, k, v, window=cfg.sliding_window)
+        elif cfg.attention_backend == "hmatrix" and causal and s > cfg.h_c_leaf:
             out = h_attention(q, k, v, c_leaf=cfg.h_c_leaf, rank=cfg.h_rank)
         else:
-            out = chunked_attention(q, k, v, causal=True)
+            out = chunked_attention(q, k, v, causal=causal)
         new_cache = (k, v) if mode == "prefill" else None
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim_)
     return out @ p.wo, new_cache

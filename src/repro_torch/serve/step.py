@@ -2,11 +2,15 @@
 
 Port of ``repro.serve.step``.
 
-  * ``prefill_step(params, tokens)``  tokens (B, S) -> logits (B, 1, V) of
-    the last position, caches (one (k, v) per layer, each (B, S, Hkv, D));
+  * ``prefill_step(params, tokens, embeds=None)``  tokens (B, S) (and, for
+    an encoder-decoder, the encoder frames ``embeds`` (B, S_enc, D)) ->
+    logits (B, 1, V) of the last position, caches (one entry per layer:
+    (k, v) each (B, S, Hkv, D), a recurrent state, or an encoder-decoder
+    layer's ``{"self", "cross"}`` K / V);
   * ``decode_step(params, tokens, caches, cache_len)``  tokens (B, 1) +
-    caches of capacity > cache_len -> logits (B, 1, V), the same caches with
-    slot ``cache_len`` written in place.
+    caches of capacity > cache_len -> logits (B, 1, V), the caches with
+    slot ``cache_len`` of every self-attention K / V written in place and
+    the recurrent states replaced.
 
 Both run under ``torch.inference_mode``.
 
@@ -39,35 +43,30 @@ import torch
 
 from .._device import resolve_device
 from ..core.hmatrix import HMatrix, make_apply
-from ..models import lm
+from ..models import encdec, lm
 from ..parallel.hshard import mesh_panel
 from ..solve import make_solver
 from .runtime import (PanelRuntime, as_vector, fetch_rows, pack_rows, staging_buffer,
                       upload_rows, width_for)
 
 
-def _require_decoder_only(cfg) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder serving is not yet ported")
-
-
 def make_prefill_step(cfg):
-    _require_decoder_only(cfg)
+    family = encdec if cfg.is_encoder_decoder else lm
 
     @torch.inference_mode()
-    def prefill_step(params, tokens):
-        return lm.forward(params, cfg, tokens, mode="prefill")
+    def prefill_step(params, tokens, embeds=None):
+        return family.forward(params, cfg, tokens, embeds, mode="prefill")
 
     return prefill_step
 
 
 def make_decode_step(cfg):
-    _require_decoder_only(cfg)
+    family = encdec if cfg.is_encoder_decoder else lm
 
     @torch.inference_mode()
     def decode_step(params, tokens, caches, cache_len: int):
-        return lm.forward(params, cfg, tokens, mode="decode", caches=caches,
-                          cache_len=cache_len)
+        return family.forward(params, cfg, tokens, mode="decode", caches=caches,
+                              cache_len=cache_len)
 
     return decode_step
 

@@ -18,6 +18,18 @@ from ..models.lm import cross_entropy_loss
 from .optimizer import AdamWConfig, apply_updates, init_opt_state
 
 
+def require_trainable(cfg) -> None:
+    """Training is ported for the ``dense`` block kind only: raise
+    ``NotImplementedError`` naming what a config has beyond it."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: training an encoder-decoder model is not yet "
+                                  "ported to repro_torch")
+    other = sorted(set(cfg.layer_kinds) - {"dense"})
+    if other:
+        raise NotImplementedError(f"{cfg.name}: training block kind(s) {other} is not yet "
+                                  "ported to repro_torch")
+
+
 def make_loss_fn(cfg, remat: bool = True):
     def loss_fn(params, batch):
         logits, _ = params(batch["tokens"], mode="train", remat=remat)
@@ -31,7 +43,10 @@ def make_train_step(cfg, opt_cfg: AdamWConfig = AdamWConfig(), *, microbatches: 
     on ``device`` (``cuda`` unless the caller asks; raises without a card).
     ``batch`` holds ``tokens`` and ``labels`` (B, S) with B a multiple of
     ``microbatches``.  Metrics: ``loss`` (the mean over microbatches),
-    ``grad_norm`` and ``lr``, 0-dim float32 tensors left on the device."""
+    ``grad_norm`` and ``lr``, 0-dim float32 tensors left on the device.
+    Raises ``NotImplementedError`` for a config with a block kind other than
+    ``dense`` or with an encoder-decoder (``require_trainable``)."""
+    require_trainable(cfg)
     model = get_model(cfg, device)
     loss_fn = make_loss_fn(cfg, remat=remat)
 

@@ -7,7 +7,7 @@ random values, are carried into the port by ``lm_params_from_arrays``.
 Both packages then see the same tokens.  Limits: logits within 1e-4
 relative (Frobenius) in ``train`` mode at S = 256 and 512 (4 and 8 leaves)
 and at each of 8 decode steps; prefill caches within 1e-5 absolute; greedy
-tokens equal.
+tokens equal.  The registry's configs and its 40 cells equal ``repro``'s.
 """
 import dataclasses
 
@@ -17,12 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import registry as registry_jax
 from repro.configs.registry import get_smoke as get_smoke_jax
 from repro.models import lm as lm_jax
 from repro.serve.step import greedy_sample as greedy_jax
 from repro.serve.step import make_decode_step as decode_jax
 from repro.serve.step import make_prefill_step as prefill_jax
-from repro_torch.configs.registry import get_arch, get_smoke, list_archs
+from repro_torch.configs import registry
+from repro_torch.configs.registry import get_arch, get_smoke
 from repro_torch.convert import lm_params_from_arrays
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models import lm
@@ -109,7 +111,7 @@ def test_prefill_and_greedy_decode_match_reference(arch):
 
     caches_j = jax.tree.map(lambda x: jnp.pad(x, [(0, 0), (0, 0), (0, steps), (0, 0), (0, 0)]),
                             caches_j)
-    caches = serve_launch.grow_caches(caches, steps)
+    caches = serve_launch.grow_caches(caches, steps, cfg)
     decode_j = jax.jit(decode_jax(cfg_j))
     decode = make_decode_step(cfg)
     t_j = greedy_jax(logits_j, cfg_j.vocab_size)
@@ -133,14 +135,25 @@ def test_launch_serve_runs_on_the_cpu():
     assert out["caches"][0][0].shape == (2, 260, 2, 16)
 
 
-def test_registry_raises_for_families_not_yet_ported():
-    assert set(ARCHS) <= set(list_archs())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_arch("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_smoke("xlstm-1.3b")
+@pytest.mark.parametrize("name", registry_jax.list_archs())
+def test_registry_configs_equal_reference(name):
+    assert registry.list_archs() == registry_jax.list_archs()
+    assert dataclasses.asdict(registry.get_arch(name)) == dataclasses.asdict(
+        registry_jax.get_arch(name))
+    assert dataclasses.asdict(registry.get_smoke(name)) == dataclasses.asdict(
+        registry_jax.get_smoke(name))
+
+
+def test_iter_cells_yield_the_reference_cells():
+    def rows(cells):
+        return [(dataclasses.asdict(a), dataclasses.asdict(s), runs, reason)
+                for a, s, runs, reason in cells]
+    got = rows(registry.iter_cells())
+    assert len(got) == 40 and got == rows(registry_jax.iter_cells())
     with pytest.raises(KeyError):
-        get_arch("no-such-arch")
+        registry.get_arch("no-such-arch")
+    with pytest.raises(KeyError):
+        registry.get_smoke("no-such-arch")
 
 
 @pytest.mark.parametrize("window,chunk,q_offset", [(0, 64, 0), (48, 64, 0), (0, 32, 64)])

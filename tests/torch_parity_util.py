@@ -2,7 +2,8 @@
 
 ``export_hmatrix`` turns a ``repro`` (JAX) HMatrix into the NumPy arrays
 that ``repro_torch.convert.hmatrix_from_arrays`` takes, so both packages
-apply the same tree, plan and factors.
+apply the same tree, plan and factors.  ``randomise`` gives an LM parameter
+tree's constant-initialised leaves seeded random values.
 """
 import numpy as np
 
@@ -28,3 +29,26 @@ def rel_err(got, want) -> float:
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+# leaf name -> how a seeded random value replaces repro's constant initialisation
+_RANDOMISED = {
+    "bq": lambda r, x: 0.1 * r.randn(*x.shape), "bk": lambda r, x: 0.1 * r.randn(*x.shape),
+    "bv": lambda r, x: 0.1 * r.randn(*x.shape), "w": lambda r, x: 0.1 * r.randn(*x.shape),
+    "b": lambda r, x: 0.1 * r.randn(*x.shape), "bias": lambda r, x: 0.1 * r.randn(*x.shape),
+    "a_log": lambda r, x: 0.5 * r.randn(*x.shape), "dt_bias": lambda r, x: 0.5 * r.randn(*x.shape),
+    "d_skip": lambda r, x: 1.0 + 0.1 * r.randn(*x.shape),
+    "f_bias": lambda r, x: 3.0 + 0.5 * r.randn(*x.shape),
+}
+
+
+def randomise(tree, rng):
+    """``repro``'s constant-initialised leaves (biases, norm gains, the SSM
+    and xLSTM constants) of an LM parameter tree -> seeded random values."""
+    import jax
+    import jax.numpy as jnp
+
+    def leaf(path, x):
+        fn = _RANDOMISED.get(getattr(path[-1], "key", None))
+        return x if fn is None else jnp.asarray(fn(rng, x).astype(np.float32))
+    return jax.tree_util.tree_map_with_path(leaf, tree)
