@@ -149,7 +149,7 @@ Phases (any failure ends the run with a non-zero exit code):
      bit-identical; sharded and unsharded times side by side, the servers'
      beside unsharded servers on the same requests.
 
-  t. training (run last): qwen2.5-14b-hmatrix at full width and 8 layers
+  t. training (run after phase f): qwen2.5-14b-hmatrix at full width and 8 layers
      (6 if the peak passes 72 GiB), bf16, random from a generator seeded on
      the card; 3 AdamW steps of 2 x 4,096 tokens in 2 microbatches with
      remat through ``make_train_step`` from ``make_batch``: finite loss and
@@ -163,10 +163,27 @@ Phases (any failure ends the run with a non-zero exit code):
      VJP at S = 512 against autograd through the plain loop (1e-4), and on
      the smoke config 4 steps straight against 2, a save, a fresh restore
      and 2 more (bit for bit), and ``launch/train.py --smoke`` resuming from
-     its directory.
+     its directory; and the flash VJP without the causal mask (fp32, S =
+     512) against autograd through the plain loop (1e-4);
+  g. the other families trained (run after phase t): granite-moe-1b-a400m
+     (24 layers), mixtral-8x7b (2 of 32; 1 if the peak passes 72 GiB),
+     zamba2-7b (24 of 81: 4 periods), xlstm-1.3b (8 of 48: one period),
+     whisper-tiny (4 + 4) and smollm-135m (30) at their published widths,
+     bf16, random from a generator seeded on the card; 3 AdamW steps of 2 x
+     4,096 tokens (xlstm 2,048; whisper 4,096 frames and tokens) in 2
+     microbatches with remat through ``make_train_step`` from ``make_batch``
+     (with frame embeds for whisper): finite loss and grad norm, seconds a
+     step (the median of steps 2-3), tokens/s, MFU (``analysis.flops``' count
+     over the dense bf16 rate), peak memory, no kernel launched; then, outside
+     the count, one step of mixtral, zamba2 and xlstm (2 x 32 tokens) under
+     ``torch.profiler`` (device time by part, idle share), step 1 again from
+     the same state (loss and parameters bit-identical), each smoke config's
+     fp32 gradients on the card within 1e-4 relative of the CPU's, and
+     ``launch/train.py --arch whisper-tiny --smoke`` resuming from its
+     directory.
 
-Kernel launch counts are set to 0 before each of phases 2 to 9, f, m and t and
-read after it: each phase must have launched the kernels of its own path
+Kernel launch counts are set to 0 before each of phases 2 to 9, f, m and t
+(and each model of phase g) and read after it: each phase must have launched the kernels of its own path
 (``PATH_KERNELS``), and every kernel must have run on the main path.
 Kernel, plain and library times are device times: CUDA events around calls
 enqueued behind a device-side sleep (``gpu_ms``), so that a wrapper's host
@@ -186,6 +203,7 @@ import gc
 import itertools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -258,8 +276,10 @@ PATH_KERNELS = {
     "hlu": ("batched_block_cholesky", "batched_recompress", "batched_trsm_panels",
             "batched_schur_dense", "batched_kernel_matmat", "batched_lowrank_matmat"),
     "lm_serve": ("hattention_nearfield",),
-    # none: repro runs the other families outside any pallas_call
+    # none: repro runs the other families outside any pallas_call, and
+    # trains them by jax.grad of plain jnp code
     "families": (),
+    "families_train": (),
     "train": ("hattention_nearfield", "hattention_nearfield_bwd"),
     "serve": ("batched_kernel_matmat", "batched_lowrank_matmat", "batched_block_cholesky",
               "batched_block_cholesky_solve"),
@@ -2585,14 +2605,13 @@ TRAIN_PARTS = (("#11 near field", ("nearfield_kernel",)),
 TRAIN_OTHER = "other (elementwise, reductions, copies: norms, loss, AdamW, ACA glue)"
 
 
-def train_profile_split(kernels: list) -> dict:
+def train_profile_split(kernels: list, parts=TRAIN_PARTS, other: str = TRAIN_OTHER) -> dict:
     """Device ms by part of a profiled step, from every kernel's name."""
-    split = {name: 0.0 for name, _ in TRAIN_PARTS}
-    split[TRAIN_OTHER] = 0.0
+    split = {name: 0.0 for name, _ in parts}
+    split[other] = 0.0
     for k in kernels:
         name = k["name"].lower()
-        part = next((part for part, keys in TRAIN_PARTS if any(key in name for key in keys)),
-                    TRAIN_OTHER)
+        part = next((part for part, keys in parts if any(key in name for key in keys)), other)
         split[part] += k["ms"]
     return split
 
@@ -2616,8 +2635,8 @@ def train_stage_split(state, batch, opt_cfg) -> dict:
     acc = None
     mark()
     for i in range(TRAIN_MICRO):
-        mb = {key: batch[key][i * size:(i + 1) * size] for key in ("tokens", "labels")}
-        logits, _ = params(mb["tokens"], mode="train", remat=True)
+        mb = {key: val[i * size:(i + 1) * size] for key, val in batch.items()}
+        logits, _ = params(mb["tokens"], mb.get("embeds"), mode="train", remat=True)
         mark()
         loss = cross_entropy_loss(logits, mb["labels"], cfg.vocab_size)
         mark()
@@ -2826,20 +2845,65 @@ def run_train_checks(st: dict, record) -> None:
             f"train: flash VJP against autograd through the loop: {rel}")
     del params2, g_f, g_a
     torch.cuda.empty_cache()
+    rec["flash_vjp_noncausal"] = check_flash_noncausal()
     run_train_resume(rec)
     rec["phase_s"] = time.perf_counter() - st["t_phase"]
     log(f"[train] phase t wall {rec['phase_s']:.1f} s")
+
+
+def check_flash_noncausal(seq: int = 512) -> dict:
+    """The flash VJP without the causal mask (whisper's encoder and its
+    cross-attention run so), fp32 on the card: q, k, v gradients of
+    ``chunked_attention(causal=False)`` against autograd through the plain
+    loop ``_flash_fwd``, within TRAIN_FLASH_LIMIT relative."""
+    from repro_torch.models import layers as lm_layers
+    gen = torch.Generator(device=TRAIN_DEV).manual_seed(SEED)
+    q = torch.randn((1, seq, 8, 64), generator=gen, device=TRAIN_DEV)
+    k = torch.randn((1, seq, 4, 64), generator=gen, device=TRAIN_DEV)
+    v = torch.randn((1, seq, 4, 64), generator=gen, device=TRAIN_DEV)
+    gout = torch.randn((1, seq, 8, 64), generator=gen, device=TRAIN_DEV)
+
+    def grads(fn):
+        inputs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad((fn(*inputs) * gout).sum(), inputs)
+
+    def plain(q, k, v):
+        out, _, _ = lm_layers._flash_fwd(q, k, v, False, 0, seq, 0)
+        return out.permute(0, 3, 1, 2, 4).reshape(q.shape)
+
+    got = grads(lambda q, k, v: lm_layers.chunked_attention(q, k, v, causal=False))
+    want = grads(plain)
+    rel = {name: rel_err(a, b) for name, a, b in zip(("dq", "dk", "dv"), got, want)}
+    log(f"[train flash VJP, non-causal, fp32, 1 x {seq}, 8 / 4 heads of 64] custom VJP against "
+        f"autograd through the plain loop: " + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+        + f" (limit {TRAIN_FLASH_LIMIT})")
+    require(all(math.isfinite(e) and e <= TRAIN_FLASH_LIMIT for e in rel.values()),
+            f"train: non-causal flash VJP against autograd through the loop: {rel}")
+    return {"seq": seq, "grad_rel_err": rel}
+
+
+def launcher_resumes(argv: list, steps: tuple = (2, 3)) -> tuple[bool, list]:
+    """``launch/train.py`` run twice on one checkpoint directory: the second
+    run must resume from the first's last step.  Returns (resumed, outputs)."""
+    import io
+    from repro_torch.launch import train as train_launch
+    outs = []
+    for n in steps:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            final = train_launch.main(argv + ["--steps", str(n)])
+        outs.append(buf.getvalue())
+    resumed = f"[restore] resumed from step {steps[0]}" in outs[1] and final["step"] == steps[1]
+    return resumed, outs
 
 
 def run_train_resume(rec) -> None:
     """On the smoke config on the card: 4 steps straight against 2 steps, a
     save, a fresh restore and 2 more, bit for bit; then ``launch/train.py
     --smoke`` run twice on one checkpoint directory (the second resumes)."""
-    import io
     import shutil
     from repro_torch.configs.registry import get_smoke
     from repro_torch.data.pipeline import DataConfig, make_batch
-    from repro_torch.launch import train as train_launch
     from repro_torch.runtime.checkpoint import CheckpointManager, flatten_state
     from repro_torch.train.step import make_train_step
     cfg = get_smoke(LM_ARCH).replace(dtype="float32")
@@ -2867,13 +2931,7 @@ def run_train_resume(rec) -> None:
     argv = ["--arch", LM_ARCH, "--smoke", "--device", TRAIN_DEV, "--batch", "2",
             "--seq-len", "256", "--microbatches", "2", "--log-every", "1", "--ckpt-dir",
             str(TRAIN_CKPT_DIR / "launcher")]
-    outs = []
-    for steps in (2, 3):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            final = train_launch.main(argv + ["--steps", str(steps)])
-        outs.append(buf.getvalue())
-    resumed_launch = "[restore] resumed from step 2" in outs[1] and final["step"] == 3
+    resumed_launch, outs = launcher_resumes(argv)
     rec["resume"] = {"straight_equals_resumed": equal, "launcher_resumed": resumed_launch,
                      "launcher_output": outs}
     log(f"[train resume, smoke config] 4 steps straight equal 2 + save + restore + 2 bit for "
@@ -2883,6 +2941,252 @@ def run_train_resume(rec) -> None:
     require(equal, "train: resume differs from the straight run")
     require(resumed_launch, f"train: the launcher did not resume: {outs}")
     shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase g: the other LM families trained (run after phase t)
+# ---------------------------------------------------------------------------
+
+# (arch, layers run, sequence): published widths, bf16; train_4k's sequence
+# with its batch of 256 cut to 2, in 2 microbatches with remat; AdamW as in
+# phase t.  The training state is 16 bytes a parameter: mixtral runs 2 of its
+# 32 layers (1 if the peak passes 72 GiB), zamba2 24 of 81 (4 periods),
+# xlstm 8 of 48 (one period) at 2,048 tokens (its sLSTM layer steps per token)
+FAMILY_TRAIN_RUNS = (("granite-moe-1b-a400m", 24, 4096), ("mixtral-8x7b", 2, 4096),
+                     ("zamba2-7b", 24, 4096), ("xlstm-1.3b", 8, 2048),
+                     ("whisper-tiny", 4, 4096), ("smollm-135m", 30, 4096))
+FAMILY_TRAIN_CUT = {"mixtral-8x7b": 1}
+# one step of each under the profiler (the trace costs ~1 ms of host time a
+# kernel to read); xlstm's at a cut sequence: a whole step is ~600,000
+# launches, too many to trace within the run's time limit
+FAMILY_TRAIN_PROFILED = {"mixtral-8x7b": None, "zamba2-7b": None, "xlstm-1.3b": 32}
+FAMILY_TRAIN_GRAD_LIMIT = 1e-4     # card against CPU, smoke configs, fp32
+FAMILY_TRAIN_ZERO = 1e-6           # a gradient zero in exact arithmetic, of the global norm
+FAMILY_TRAIN_SMOKE_SEQ = 64
+FAMILY_TRAIN_DEV = "cuda"          # a CPU rehearsal of the phase's control flow sets "cpu"
+# parts of a family's train step by kernel name (first match)
+FAMILY_TRAIN_PARTS = (("bf16 GEMM (projections, experts, head)", ("nvjet", "bf16")),
+                      ("fp32 products (band, SSD, mLSTM, attention)", ("gemm", "gemv")),
+                      ("gathers and scatters (index kernels)", ("index", "scatter", "gather")),
+                      ("scans (cumsum: MoE slots, SSD decays)", ("scan", "cumsum")))
+FAMILY_TRAIN_OTHER = "other (elementwise, reductions, copies: norms, gates, loss, AdamW)"
+
+
+def family_train_flops(cfg, seq: int) -> float:
+    """``analysis.flops``' count of one train step of 2 x ``seq`` tokens."""
+    from repro_torch.analysis.flops import attention_extra_flops, model_flops
+    from repro_torch.configs.base import ShapeConfig
+    shape = ShapeConfig("train", seq, TRAIN_BATCH, "train")
+    return model_flops(cfg, shape) + attention_extra_flops(cfg, shape)
+
+
+def family_train_setup(name: str, layers: int, seq: int, n_batches: int):
+    """The model's ``make_train_step`` pair, its batches (with frame embeds
+    for a stub audio frontend) and its config."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train.step import make_train_step
+    cfg = get_arch(name).replace(n_layers=layers)
+    init_state, train_step = make_train_step(cfg, train_opt_cfg(), microbatches=TRAIN_MICRO,
+                                             remat=True, device=FAMILY_TRAIN_DEV)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=TRAIN_BATCH,
+                      seed=SEED)
+    batches = [make_batch(dcfg, s, d_model=cfg.d_model, with_embeds=cfg.frontend == "audio_stub",
+                          device=FAMILY_TRAIN_DEV) for s in range(n_batches)]
+    return cfg, init_state, train_step, batches
+
+
+def family_train_main(name: str, layers: int, seq: int) -> dict:
+    """The main path of one model: TRAIN_STEPS steps through ``make_train_step``
+    from ``make_batch``.  Returns what the checks after it need."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.api import count_params, count_params_analytic
+    cfg, init_state, train_step, batches = family_train_setup(name, layers, seq, TRAIN_STEPS)
+    gen = torch.Generator(device=FAMILY_TRAIN_DEV).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    state, t_init = wall_s(lambda: init_state(gen))
+    steps, first = [], None
+    for s in range(TRAIN_STEPS):
+        (state, metrics), secs = wall_s(lambda: train_step(state, batches[s]))
+        loss, gnorm, lr = torch.stack([metrics["loss"], metrics["grad_norm"],
+                                       metrics["lr"]]).tolist()
+        steps.append({"step": s, "loss": loss, "grad_norm": gnorm, "lr": lr, "seconds": secs})
+        log(f"[families train] {name} ({layers} layers), step {s}: loss {loss:.6f}, grad norm "
+            f"{gnorm:.4f}, {secs:.3f} s")
+        if s == 0:
+            first = {"loss": metrics["loss"].cpu(),
+                     "params": [p.detach().to("cpu", copy=True)
+                                for p in state["params"].parameters()]}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s_step = statistics.median(st["seconds"] for st in steps[1:])
+    flop = family_train_flops(cfg, seq)
+    rec = {"layers": layers, "published_layers": get_arch(name).n_layers,
+           "params": count_params(state["params"]),
+           "params_analytic": count_params_analytic(cfg)["total"], "dtype": cfg.dtype,
+           "global_batch": TRAIN_BATCH, "seq_len": seq, "microbatches": TRAIN_MICRO,
+           "remat": True, "init_s": t_init, "steps": steps, "s_per_step": s_step,
+           "tok_per_s": TRAIN_BATCH * seq / s_step, "peak_memory_gib": peak,
+           "model_flop_per_step": flop, "mfu": flop / (s_step * PEAK_BF16),
+           "mfu_peak_flops": PEAK_BF16}
+    log(f"[families train] {name}: {rec['params']:,} parameters ({layers} of "
+        f"{rec['published_layers']} layers, bf16) made in {t_init:.2f} s; {TRAIN_BATCH} x {seq} "
+        f"tokens a step in {TRAIN_MICRO} microbatches with remat: {s_step:.3f} s a step (median "
+        f"of steps 2-{TRAIN_STEPS}), {rec['tok_per_s']:.0f} tok/s; analysis.flops "
+        f"{flop / 1e12:.2f} TFLOP a step, MFU {rec['mfu']:.4f} of the dense bf16 "
+        f"{PEAK_BF16 / 1e12:.0f} TFLOP/s; peak memory {peak:.2f} GiB")
+    require(all(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]) for st in steps),
+            f"families train {name}: a non-finite loss or grad norm: {steps}")
+    return {"cfg": cfg, "state": state, "train_step": train_step, "init_state": init_state,
+            "batches": batches, "first": first, "rec": rec}
+
+
+def family_train_checks(name: str, st: dict) -> None:
+    """After the launch count: one step under the profiler (a cut sequence
+    for xlstm), then step 1 again from the same (re-made) state: loss and
+    every parameter bit-identical."""
+    rec, cfg = st["rec"], st["cfg"]
+    state, train_step = st.pop("state"), st["train_step"]
+    if name in FAMILY_TRAIN_PROFILED:
+        seq = FAMILY_TRAIN_PROFILED[name] or rec["seq_len"]
+        if seq == rec["seq_len"]:
+            batch = st["batches"][0]
+        else:
+            batch = family_train_setup(name, cfg.n_layers, seq, 1)[3][0]
+        gc.collect()
+        prof, wall = wall_s(lambda: device_profile(lambda: train_step(state, batch), top=10 ** 6))
+        prof["wall_s"] = wall          # the step and the reading of its trace
+        prof["split"] = train_profile_split(prof["top"], FAMILY_TRAIN_PARTS, FAMILY_TRAIN_OTHER)
+        prof["top"] = prof["top"][:12]
+        prof["seq_len"] = seq
+        prof["launches_per_token"] = prof["kernel_launches"] / (TRAIN_BATCH * seq)
+        rec["profile"] = prof
+        log(f"[families train profile] {name}, one step of {TRAIN_BATCH} x {seq}: host "
+            f"{prof['host_s'] * 1e3:.1f} ms, {prof['kernel_launches']} kernels "
+            f"({prof['launches_per_token']:.1f} a token) {prof['device_ms']:.1f} ms, device "
+            f"idle {prof['idle_share']:.3f}; with the trace read {wall:.1f} s")
+        for part, ms in prof["split"].items():
+            log(f"[families train profile]   {ms:10.2f} ms  {part}")
+        for k in prof["top"]:
+            log(f"[families train profile]   {k['ms']:10.3f} ms  {k['calls']:7d}x  {k['name']}")
+        del prof, batch
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = st["init_state"](torch.Generator(device=FAMILY_TRAIN_DEV).manual_seed(SEED))
+    state, metrics = train_step(state, st["batches"][0])
+    first = st.pop("first")
+    same_loss = torch.equal(metrics["loss"].cpu(), first["loss"])
+    same_params = all(torch.equal(p.detach(), h.to(FAMILY_TRAIN_DEV))
+                      for p, h in zip(state["params"].parameters(), first["params"]))
+    rec["step1_twice_bit_identical"] = {"loss": same_loss, "params": same_params}
+    log(f"[families train] {name}: step 1 twice from the same state: loss bit-identical "
+        f"{same_loss}, parameters bit-identical {same_params}")
+    require(same_loss and same_params, f"families train {name}: step 1 twice differs")
+    del state, metrics, first
+
+
+def family_train_grads(params, batch, loss_fn) -> tuple:
+    names, plist = zip(*params.named_parameters())
+    loss = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, plist)
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def family_train_card_vs_cpu(name: str) -> dict:
+    """The smoke config in fp32 from one state and one batch: the loss and
+    every parameter's gradient on the card within FAMILY_TRAIN_GRAD_LIMIT
+    relative of the port's own CPU run (the run the tier-1 tests hold against
+    ``repro``); a gradient zero in exact arithmetic (whisper's key biases,
+    without RoPE) is held below FAMILY_TRAIN_ZERO of the global norm on both."""
+    import copy
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.api import get_model
+    from repro_torch.train.step import make_loss_fn
+    cfg = get_smoke(name).replace(dtype="float32")
+    params_cpu = get_model(cfg, "cpu")["init_params"](torch.Generator().manual_seed(SEED))
+    params_dev = copy.deepcopy(params_cpu).to(FAMILY_TRAIN_DEV)
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=FAMILY_TRAIN_SMOKE_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=SEED), 0, d_model=cfg.d_model,
+                       with_embeds=cfg.is_encoder_decoder, device="cpu")
+    loss_fn = make_loss_fn(cfg, remat=True)
+    loss_c, g_c = family_train_grads(params_cpu, batch, loss_fn)
+    loss_d, g_d = family_train_grads(
+        params_dev, {k: v.to(FAMILY_TRAIN_DEV) for k, v in batch.items()}, loss_fn)
+    norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in g_c.values())))
+    rel, zero = {}, {}
+    for n, g in g_c.items():
+        gd = g_d[n].cpu()
+        if float(torch.linalg.vector_norm(g)) <= FAMILY_TRAIN_ZERO * norm:
+            zero[n] = max(float(torch.linalg.vector_norm(g)),
+                          float(torch.linalg.vector_norm(gd))) / norm
+        else:
+            rel[n] = rel_err(gd, g)
+    worst = max(rel, key=rel.get)
+    out = {"loss_card": loss_d, "loss_cpu": loss_c, "loss_rel_err": abs(loss_d - loss_c) / loss_c,
+           "grad_rel_err_max": rel[worst], "worst": worst, "zero_in_exact": zero,
+           "tensors": len(g_c)}
+    log(f"[families train card vs CPU] {name}-smoke fp32, {TRAIN_BATCH} x "
+        f"{FAMILY_TRAIN_SMOKE_SEQ}: loss {loss_d:.7f} / {loss_c:.7f}; largest gradient rel err "
+        f"{rel[worst]:.3e} ({worst}) over {len(rel)} tensors (limit {FAMILY_TRAIN_GRAD_LIMIT})"
+        + (f"; {len(zero)} zero in exact arithmetic, below {max(zero.values()):.1e} of the "
+           f"global norm" if zero else ""))
+    require(out["loss_rel_err"] <= FAMILY_TRAIN_GRAD_LIMIT
+            and all(math.isfinite(e) and e <= FAMILY_TRAIN_GRAD_LIMIT for e in rel.values())
+            and all(e <= FAMILY_TRAIN_ZERO for e in zero.values()),
+            f"families train {name}: card and CPU gradients differ: {out}")
+    return out
+
+
+def run_families_train(record, count) -> None:
+    """Phase g: the six families trained on the card, one at a time; the
+    launch counts are set to 0 before each model's main path and read by
+    ``count()`` after it (no kernel may launch), then the model is checked
+    and freed.  Then the smoke configs' gradients on the card against the
+    CPU and whisper's launcher resuming."""
+    import shutil
+    from repro_torch import _build
+    t_phase = time.perf_counter()
+    out = record.setdefault("families_train", {})
+    for name, layers, seq in FAMILY_TRAIN_RUNS:
+        t_model = time.perf_counter()
+        depths = (layers, FAMILY_TRAIN_CUT[name]) if name in FAMILY_TRAIN_CUT else (layers,)
+        for depth in depths:
+            _build.reset_launches()
+            st = family_train_main(name, depth, seq)
+            count()
+            if st["rec"]["peak_memory_gib"] <= TRAIN_PEAK_LIMIT_GIB or depth == depths[-1]:
+                break
+            log(f"[families train] {name}: peak {st['rec']['peak_memory_gib']:.2f} GiB at {depth} "
+                f"layers passes {TRAIN_PEAK_LIMIT_GIB} GiB: the depth is cut to "
+                f"{FAMILY_TRAIN_CUT[name]}")
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[name] = st["rec"]
+        family_train_checks(name, st)
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name]["wall_s"] = time.perf_counter() - t_model
+    t_checks = time.perf_counter()
+    out["card_vs_cpu"] = {name: family_train_card_vs_cpu(name) for name, _, _ in FAMILY_TRAIN_RUNS}
+    ckpt = TRAIN_CKPT_DIR / "whisper_launcher"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    resumed, outs = launcher_resumes(
+        ["--arch", "whisper-tiny", "--smoke", "--device", FAMILY_TRAIN_DEV, "--batch", "2",
+         "--seq-len", "256", "--microbatches", "2", "--log-every", "1", "--ckpt-dir", str(ckpt)])
+    out["whisper_launcher"] = {"resumed": resumed, "output": outs}
+    log(f"[families train] launch/train.py --arch whisper-tiny --smoke resumed from its "
+        f"directory: {resumed}")
+    for line in outs[1].splitlines():
+        log(f"[families train launcher] {line}")
+    require(resumed, f"families train: the whisper launcher did not resume: {outs}")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    out["checks_s"] = time.perf_counter() - t_checks
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[families train] phase g wall {out['phase_s']:.1f} s (checks after the models "
+        f"{out['checks_s']:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -3363,8 +3667,8 @@ def run_mesh(pts_k, hm_p, hm_k, record) -> None:
 
 def main(record: dict) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="0123456789fmt",
-                        help="phases to run (default all: 0123456789fmt); 0 is always run")
+    parser.add_argument("--phases", default="0123456789fmtg",
+                        help="phases to run (default all: 0123456789fmtg); 0 is always run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -3565,7 +3869,7 @@ def main(record: dict) -> int:
         count_launches("hlu")
         run_hlu_measurements(hm_hlu, pre, f_k, rng, record)
         del hm_hlu, pre
-    if set(args.phases) & set("8ft"):
+    if set(args.phases) & set("8ftg"):
         pts_p = pts_k = None
         torch.cuda.empty_cache()
     if "8" in args.phases:
@@ -3597,6 +3901,15 @@ def main(record: dict) -> int:
         run_train_checks(train_state, record)
         del train_state
         torch.cuda.empty_cache()
+    if "g" in args.phases:
+        def count_families_train() -> None:
+            count_launches("families_train")
+            launched = {name: n for name, n in _build.LAUNCHES.items() if n}
+            require(not launched, f"families_train: kernels launched on a path with none: "
+                    f"{launched}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_families_train(record, count_families_train)
     if set("2345678t") <= set(args.phases):
         missing = [name for name, count in launches.items() if count == 0]
         require(not missing, f"kernels never launched on the main path: {missing}")

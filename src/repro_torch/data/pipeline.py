@@ -35,10 +35,16 @@ def _batch_generator(cfg: DataConfig, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed) & ((1 << 63) - 1))
 
 
-def make_batch(cfg: DataConfig, step: int, *, device=None) -> dict:
-    """Returns {"tokens", "labels"}, int64 (B, S) on ``device``, for ``step``.
+def make_batch(cfg: DataConfig, step: int, *, d_model: int | None = None,
+               with_embeds: bool = False, device=None) -> dict:
+    """Returns {"tokens", "labels"}, int64 (B, S) on ``device``, for ``step``,
+    and with ``with_embeds`` also "embeds", (B, S, d_model) float32 standard
+    normals times 0.1 (a stub frontend's frames).  The embeds are the
+    generator's third draw, so tokens and labels do not depend on them.
 
     ``device=None`` is the card; it raises where there is none."""
+    if with_embeds and d_model is None:
+        raise ValueError("make_batch: with_embeds needs d_model")
     device = resolve_device(device)
     gen = _batch_generator(cfg, step)
     b, s, v = cfg.global_batch, cfg.seq_len, cfg.vocab_size
@@ -52,20 +58,26 @@ def make_batch(cfg: DataConfig, step: int, *, device=None) -> dict:
     # next-token labels; the final position has no successor and is marked
     # -1 (masked by cross_entropy_loss)
     labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
-    return {"tokens": tokens.to(device), "labels": labels.to(device)}
+    out = {"tokens": tokens.to(device), "labels": labels.to(device)}
+    if with_embeds:
+        out["embeds"] = (torch.randn((b, s, d_model), generator=gen) * 0.1).to(device)
+    return out
 
 
 class DataIterator:
     """Stateful wrapper with an explicit, checkpointable step counter; its
-    batches land on ``device`` (``None``: the card, as ``make_batch``)."""
+    batches land on ``device`` (``None``: the card, as ``make_batch``), with
+    ``make_batch``'s ``d_model`` and ``with_embeds``."""
 
-    def __init__(self, cfg: DataConfig, start_step: int = 0, *, device=None):
+    def __init__(self, cfg: DataConfig, start_step: int = 0, *, d_model: int | None = None,
+                 with_embeds: bool = False, device=None):
         self.cfg = cfg
         self.step = start_step
+        self.kw = {"d_model": d_model, "with_embeds": with_embeds}
         self.device = resolve_device(device)
 
     def __next__(self) -> dict:
-        batch = make_batch(self.cfg, self.step, device=self.device)
+        batch = make_batch(self.cfg, self.step, **self.kw, device=self.device)
         self.step += 1
         return batch
 
@@ -73,7 +85,7 @@ class DataIterator:
         return {"step": self.step, "seed": self.cfg.seed}
 
     @classmethod
-    def from_state(cls, cfg: DataConfig, state: dict, *, device=None):
+    def from_state(cls, cfg: DataConfig, state: dict, **kw):
         if state["seed"] != cfg.seed:
             raise ValueError(f"seed mismatch on restore: {state['seed']} != {cfg.seed}")
-        return cls(cfg, start_step=state["step"], device=device)
+        return cls(cfg, start_step=state["step"], **kw)

@@ -4,11 +4,15 @@
         --smoke --device cpu --steps 3                      # plain path, CPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b-hmatrix \
         --smoke --steps 200 --ckpt-dir build/ckpt            # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b --smoke \
+        --device cpu                                          # any registry name
 
 Wires together the config registry, the deterministic data pipeline, the
 train step (remat, microbatch accumulation, AdamW), the checkpoint manager
 (atomic, async, keep-k), the preemption handler, the straggler monitor and
-the restart supervisor, as ``repro.launch.train`` does.  The flags are
+the restart supervisor, as ``repro.launch.train`` does.  Every registry
+config trains; a config with the ``audio_stub`` frontend (whisper-tiny)
+gets frame embeddings in its batches, as in ``repro``.  The flags are
 ``repro``'s plus ``--device`` (default: the CUDA card; raises without one).
 ``--smoke`` runs the reduced config in float32.  Parameters are random
 from a ``torch.Generator`` seeded with ``--seed`` on the device; the
@@ -30,7 +34,7 @@ from ..runtime.checkpoint import CheckpointManager
 from ..runtime.fault_tolerance import PreemptionHandler
 from ..serve.faults import StragglerMonitor, run_with_restarts
 from ..train.optimizer import AdamWConfig
-from ..train.step import make_train_step, require_trainable
+from ..train.step import make_train_step
 
 DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
 
@@ -56,10 +60,12 @@ def train_loop(cfg, args, device: torch.device):
         start = manifest["extra"]["data_step"]
         print(f"[restore] resumed from step {start}")
 
+    with_embeds = cfg.frontend == "audio_stub"
     t_last = time.perf_counter()
     try:
         for step in range(start, args.steps):
-            batch = make_batch(dcfg, step, device=device)
+            batch = make_batch(dcfg, step, d_model=cfg.d_model, with_embeds=with_embeds,
+                               device=device)
             state, metrics = train_step(state, batch)
             if step % args.log_every == 0 or step == args.steps - 1:
                 # one device read for every logged scalar
@@ -113,7 +119,6 @@ def main(argv=None):
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     if args.smoke:
         cfg = cfg.replace(dtype="float32")
-    require_trainable(cfg)      # before the restart loop, which would retry it
     return run_with_restarts(lambda: train_loop(cfg, args, device),
                              max_restarts=args.max_restarts,
                              on_restart=lambda n, e: print(f"[restart {n}] after: {e}"))

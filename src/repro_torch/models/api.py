@@ -9,7 +9,9 @@ def get_model(cfg, device=None) -> dict:
     """The functions of ``cfg``'s family (``encdec`` for encoder-decoder
     configs, else ``lm``) on ``device`` (``cuda`` unless the caller asks;
     raises without a card): ``init_params(generator)`` (the generator must
-    live on that device), ``forward(params, **kw)`` and
+    live on that device), ``forward(params, **kw)`` (``tokens``, ``embeds``,
+    ``mode``, ``caches``, ``cache_len`` and ``remat``, passed through to
+    either family: the encoder-decoder reads its frames from ``embeds``) and
     ``init_caches(batch, max_seq, enc_seq=None)`` (``enc_seq``, the encoder
     frames, defaults to ``max_seq``; decoder-only models ignore it)."""
     dev = resolve_device(device)

@@ -11,11 +11,18 @@ its end).  Both stacks loop over their layers in order.
 Caches: one dict per decoder layer, ``{"self": (k, v), "cross": (k, v)}``;
 the cross K / V are computed once, at prefill, from the encoder output, and
 decode only reads them.
+
+Training: ``remat=True`` runs each encoder and decoder layer under
+``torch.utils.checkpoint`` (non-reentrant), as ``lm.forward`` runs each
+block.  ``repro``'s ``encdec.forward`` takes ``remat`` and ignores it;
+checkpointing recomputes the same operations, so the values and gradients
+are those of the plain forward.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (MLP, Attention, Norm, apply_norm, attention_block, embed_init,
                      embed_tokens, lm_head, make_attention_params, make_mlp_params,
@@ -54,9 +61,15 @@ class EncDec(nn.Module):
         self.enc_norm, self.dec_norm = enc_norm, dec_norm
 
     def forward(self, tokens=None, embeds=None, *, mode: str = "train", caches=None,
-                cache_len=None):
+                cache_len=None, remat: bool = False):
         return forward(self, self.cfg, tokens, embeds, mode=mode, caches=caches,
-                       cache_len=cache_len)
+                       cache_len=cache_len, remat=remat)
+
+    def stacked_parameter_names(self) -> set[str]:
+        """The parameters ``repro`` stacks on a leading axis of layers: every
+        encoder and decoder layer's."""
+        return {name for name, _ in self.named_parameters()
+                if name.startswith(("enc_layers.", "dec_layers."))}
 
 
 def init_params(gen: torch.Generator, cfg) -> EncDec:
@@ -77,19 +90,25 @@ def init_params(gen: torch.Generator, cfg) -> EncDec:
                   embed_init(gen, DEC_POS, cfg.d_model, dtype), norm(), norm())
 
 
-def encode(params: EncDec, cfg, frames):
+def _enc_layer(lp: EncLayer, cfg, x, positions):
+    h = apply_norm(cfg.norm_type, lp.ln1, x)
+    attn, _ = attention_block(lp.attn, cfg, h, positions=positions, mode="train", causal=False)
+    x = x + attn
+    h = apply_norm(cfg.norm_type, lp.ln2, x)
+    return x + mlp_block(lp.mlp, cfg, h)
+
+
+def encode(params: EncDec, cfg, frames, *, remat: bool = False):
     """frames: (B, S_enc, D) frame embeddings (frontend stub)."""
     b, s, d = frames.shape
     dtype = getattr(torch, cfg.dtype)
     x = frames.to(dtype) + sinusoidal_positions(s, d, dtype, frames.device)
     positions = torch.arange(s, device=frames.device)
     for lp in params.enc_layers:
-        h = apply_norm(cfg.norm_type, lp.ln1, x)
-        attn, _ = attention_block(lp.attn, cfg, h, positions=positions, mode="train",
-                                  causal=False)
-        x = x + attn
-        h = apply_norm(cfg.norm_type, lp.ln2, x)
-        x = x + mlp_block(lp.mlp, cfg, h)
+        if remat:
+            x = checkpoint(_enc_layer, lp, cfg, x, positions, use_reentrant=False)
+        else:
+            x = _enc_layer(lp, cfg, x, positions)
     return apply_norm(cfg.norm_type, params.enc_norm, x)
 
 
@@ -104,10 +123,32 @@ def _cross_kv(lp: DecLayer, cfg, enc_out):
     return k.reshape(b, s, cfg.n_kv_heads, hd), v.reshape(b, s, cfg.n_kv_heads, hd)
 
 
+def _dec_layer(lp: DecLayer, cfg, x, enc_out, positions, *, mode, cache, cache_len):
+    """One decoder layer.  Returns (x, self-attention (k, v) or None, cross (k, v))."""
+    h = apply_norm(cfg.norm_type, lp.ln1, x)
+    attn, new_self = attention_block(lp.self_attn, cfg, h, positions=positions, mode=mode,
+                                     cache=cache["self"] if cache is not None else None,
+                                     cache_len=cache_len)
+    x = x + attn
+    h = apply_norm(cfg.norm_type, lp.ln_x, x)
+    ck, cv = cache["cross"] if mode == "decode" else _cross_kv(lp, cfg, enc_out)
+    cross, _ = attention_block(lp.cross_attn, cfg, h, positions=positions, mode="train",
+                               kv_override=(ck, cv), causal=False)
+    x = x + cross
+    h = apply_norm(cfg.norm_type, lp.ln2, x)
+    return x + mlp_block(lp.mlp, cfg, h), new_self, (ck, cv)
+
+
+def _train_dec_layer(lp: DecLayer, cfg, x, enc_out, positions):
+    return _dec_layer(lp, cfg, x, enc_out, positions, mode="train", cache=None,
+                      cache_len=None)[0]
+
+
 def decode_stack(params: EncDec, cfg, tokens, enc_out=None, *, mode: str = "train",
-                 caches=None, cache_len=None):
+                 caches=None, cache_len=None, remat: bool = False):
     """tokens: (B, S_dec).  Returns (logits, new_caches).  Decode writes the
-    new token's self-attention K / V into ``caches`` in place."""
+    new token's self-attention K / V into ``caches`` in place; ``remat``
+    (train mode only) checkpoints each layer."""
     s = tokens.shape[1]
     x = embed_tokens(params.embed, tokens)
     if mode == "decode":
@@ -119,20 +160,14 @@ def decode_stack(params: EncDec, cfg, tokens, enc_out=None, *, mode: str = "trai
 
     new_caches = []
     for i, lp in enumerate(params.dec_layers):
+        if remat and mode == "train":
+            x = checkpoint(_train_dec_layer, lp, cfg, x, enc_out, positions,
+                           use_reentrant=False)
+            continue
         cache = caches[i] if caches is not None else None
-        h = apply_norm(cfg.norm_type, lp.ln1, x)
-        attn, new_self = attention_block(lp.self_attn, cfg, h, positions=positions, mode=mode,
-                                         cache=cache["self"] if cache is not None else None,
-                                         cache_len=cache_len)
-        x = x + attn
-        h = apply_norm(cfg.norm_type, lp.ln_x, x)
-        ck, cv = cache["cross"] if mode == "decode" else _cross_kv(lp, cfg, enc_out)
-        cross, _ = attention_block(lp.cross_attn, cfg, h, positions=positions, mode="train",
-                                   kv_override=(ck, cv), causal=False)
-        x = x + cross
-        h = apply_norm(cfg.norm_type, lp.ln2, x)
-        x = x + mlp_block(lp.mlp, cfg, h)
-        new_caches.append({"self": new_self, "cross": (ck, cv)} if want_cache else None)
+        x, new_self, cross_kv = _dec_layer(lp, cfg, x, enc_out, positions, mode=mode,
+                                           cache=cache, cache_len=cache_len)
+        new_caches.append({"self": new_self, "cross": cross_kv} if want_cache else None)
 
     if mode == "prefill":
         x = x[:, -1:]
@@ -142,18 +177,20 @@ def decode_stack(params: EncDec, cfg, tokens, enc_out=None, *, mode: str = "trai
 
 
 def forward(params: EncDec, cfg, tokens=None, embeds=None, *, mode: str = "train",
-            caches=None, cache_len=None):
+            caches=None, cache_len=None, remat: bool = False):
     """The entry ``lm.forward`` has.  train / prefill: ``embeds`` are the
-    encoder frames, ``tokens`` the decoder tokens; prefill's logits are the
-    last position's (B, 1, V).  decode: ``tokens`` (B, 1), the cross K / V
-    in ``caches``."""
+    encoder frames, ``tokens`` the decoder tokens; train's logits are (B,
+    S_dec, V), prefill's the last position's (B, 1, V).  decode: ``tokens``
+    (B, 1), the cross K / V in ``caches``.  ``remat`` (train mode only)
+    checkpoints each encoder and decoder layer: the same values."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "decode":
         return decode_stack(params, cfg, tokens, None, mode=mode, caches=caches,
                             cache_len=cache_len)
-    enc_out = encode(params, cfg, embeds)
-    return decode_stack(params, cfg, tokens, enc_out, mode=mode)
+    remat = remat and mode == "train"
+    enc_out = encode(params, cfg, embeds, remat=remat)
+    return decode_stack(params, cfg, tokens, enc_out, mode=mode, remat=remat)
 
 
 def init_caches(cfg, batch: int, max_seq: int, enc_seq: int, *, device) -> list:

@@ -81,6 +81,14 @@ class LM(nn.Module):
         return forward(self, self.cfg, tokens, embeds, mode=mode, caches=caches,
                        cache_len=cache_len, remat=remat)
 
+    def stacked_parameter_names(self) -> set[str]:
+        """The parameters ``repro`` stacks on a leading axis of periods: those
+        of the layers before the tail (not ``shared``, which it keeps once)."""
+        periods = self.cfg.n_layers // len(self.cfg.block_pattern)
+        stacked = periods * len(self.cfg.block_pattern)
+        return {f"layers.{i}.{name}" for i in range(stacked)
+                for name, _ in self.layers[i].named_parameters()}
+
 
 # ---------------------------------------------------------------------------
 # Per-kind params / caches / apply

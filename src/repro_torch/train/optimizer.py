@@ -8,6 +8,9 @@ updates parameters and state in place (``repro``'s returns new pytrees),
 with ``repro``'s arithmetic in the same order, elementwise over pieces of
 at most ``CHUNK`` elements so that its float32 temporaries stay small
 beside the largest parameter (the 778M-entry embedding at full width).
+Weight decay falls on matrices and on every parameter of a model's
+stacked layers (``stacked_parameter_names``): ``repro`` decides by the
+rank of its pytree's leaves, where those layers carry a leading axis.
 """
 from __future__ import annotations
 
@@ -94,6 +97,11 @@ def apply_updates(params, grads: dict, opt_state: dict, step, cfg: AdamWConfig):
     0-dim float32 tensors on the parameters' device."""
     named = named_tensors(params)
     names = list(named)
+    # decoupled weight decay on matrices only, as ``repro`` decides it on its
+    # pytree: there the layers are stacked on a leading axis, so their vectors
+    # (norm gains, biases, the SSM and xLSTM constants) are matrices and decay
+    stacked = (params.stacked_parameter_names()
+               if hasattr(params, "stacked_parameter_names") else set())
     dev = named[names[0]].device
     g = [grads[n] for n in names]
 
@@ -120,7 +128,7 @@ def apply_updates(params, grads: dict, opt_state: dict, step, cfg: AdamWConfig):
     bc2 = 1.0 - _f32(cfg.b2, dev) ** t
     for name, gi in zip(names, g):
         p, m, v = named[name], opt_state["m"][name], opt_state["v"][name]
-        decay = p.ndim >= 2               # decoupled weight decay on matrices only
+        decay = p.ndim >= 2 or name in stacked
         for pp, gp, mp, vp in _pieces(p, gi, m, v):
             mp.mul_(cfg.b1).add_((1 - cfg.b1) * gp)
             vp.mul_(cfg.b2).add_((1 - cfg.b2) * gp * gp)

@@ -7,7 +7,9 @@ state is ``{"step": int, "params": LM, "opt": {"m", "v"[, "err"]}}``;
 step's metrics.  The microbatches run in order, each under remat (one
 checkpoint per block), and their gradients are added into float32
 accumulators as ``repro``'s ``lax.scan`` adds them; a microbatch's
-gradients are freed before the next one runs.
+gradients are freed before the next one runs.  Every family trains so:
+the decoder-only block kinds and the encoder-decoder, whose encoder reads
+the batch's ``embeds``.
 """
 from __future__ import annotations
 
@@ -18,21 +20,12 @@ from ..models.lm import cross_entropy_loss
 from .optimizer import AdamWConfig, apply_updates, init_opt_state
 
 
-def require_trainable(cfg) -> None:
-    """Training is ported for the ``dense`` block kind only: raise
-    ``NotImplementedError`` naming what a config has beyond it."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: training an encoder-decoder model is not yet "
-                                  "ported to repro_torch")
-    other = sorted(set(cfg.layer_kinds) - {"dense"})
-    if other:
-        raise NotImplementedError(f"{cfg.name}: training block kind(s) {other} is not yet "
-                                  "ported to repro_torch")
-
-
 def make_loss_fn(cfg, remat: bool = True):
+    """The mean next-token cross entropy of ``batch`` (``tokens``,
+    ``labels`` and, for a stub frontend, ``embeds``).  No router auxiliary
+    loss is added for MoE configs: ``repro``'s branch for it is a ``pass``."""
     def loss_fn(params, batch):
-        logits, _ = params(batch["tokens"], mode="train", remat=remat)
+        logits, _ = params(batch["tokens"], batch.get("embeds"), mode="train", remat=remat)
         return cross_entropy_loss(logits, batch["labels"], cfg.vocab_size)
     return loss_fn
 
@@ -41,12 +34,11 @@ def make_train_step(cfg, opt_cfg: AdamWConfig = AdamWConfig(), *, microbatches: 
                     remat: bool = True, device=None):
     """``init_state(generator)`` and ``train_step(state, batch)`` for ``cfg``
     on ``device`` (``cuda`` unless the caller asks; raises without a card).
-    ``batch`` holds ``tokens`` and ``labels`` (B, S) with B a multiple of
-    ``microbatches``.  Metrics: ``loss`` (the mean over microbatches),
-    ``grad_norm`` and ``lr``, 0-dim float32 tensors left on the device.
-    Raises ``NotImplementedError`` for a config with a block kind other than
-    ``dense`` or with an encoder-decoder (``require_trainable``)."""
-    require_trainable(cfg)
+    ``batch`` holds ``tokens`` and ``labels`` (B, S) and, for an
+    encoder-decoder, ``embeds`` (B, S_enc, d_model), every key split along
+    B, a multiple of ``microbatches``.  Metrics: ``loss`` (the mean over
+    microbatches), ``grad_norm`` and ``lr``, 0-dim float32 tensors left on
+    the device."""
     model = get_model(cfg, device)
     loss_fn = make_loss_fn(cfg, remat=remat)
 
@@ -64,7 +56,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig = AdamWConfig(), *, microbatches: 
         size = b // microbatches
         acc, losses = None, []
         for i in range(microbatches):
-            mb = {key: batch[key][i * size:(i + 1) * size] for key in ("tokens", "labels")}
+            mb = {key: val[i * size:(i + 1) * size] for key, val in batch.items()}
             loss = loss_fn(params, mb)
             grads = torch.autograd.grad(loss, plist)
             if acc is None:

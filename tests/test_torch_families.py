@@ -35,7 +35,6 @@ from repro_torch.launch import serve as serve_launch
 from repro_torch.models import lm
 from repro_torch.models.api import count_params
 from repro_torch.serve.step import greedy_sample, make_decode_step, make_prefill_step
-from repro_torch.train.step import make_train_step
 
 from torch_parity_util import randomise, rel_err
 
@@ -347,24 +346,8 @@ def test_router_aux_loss_matches_reference():
 
 
 # ---------------------------------------------------------------------------
-# training's refusal, the launcher
+# the serving launcher
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch,kind", [("mixtral-8x7b", "moe"), ("zamba2-7b", "mamba"),
-                                       ("xlstm-1.3b", "mlstm"), ("whisper-tiny", "encoder")])
-def test_make_train_step_refuses_the_other_families(arch, kind):
-    cfg = registry.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match=kind):
-        make_train_step(cfg, device="cpu")
-
-
-def test_launch_train_refuses_before_its_restart_loop(tmp_path):
-    from repro_torch.launch import train as train_launch
-    with pytest.raises(NotImplementedError, match="mamba"):
-        train_launch.main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu", "--steps", "1",
-                           "--ckpt-dir", str(tmp_path)])
-    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b", "mixtral-8x7b"])
