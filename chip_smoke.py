@@ -148,6 +148,23 @@ Phases (any failure ends the run with a non-zero exit code):
      rtol 1e-2 / atol 1e-4 of the unsharded solve; every call twice
      bit-identical; sharded and unsharded times side by side, the servers'
      beside unsharded servers on the same requests.
+  p. the parallel and tooling layer (run after phase m): GPipe
+     (``parallel.pipeline.pipeline_apply``) over qwen2.5-14b-hmatrix's layers
+     at full width and 8 layers, bf16, random from a generator seeded on the
+     card, 4 stages of 2 layers on a ``"stage"`` axis of four logical shards
+     of card 0 (of cards 0-3 where there are four), 4 microbatches of 1 x
+     4,096 embedded tokens, a train-mode forward under ``no_grad``: bit for
+     bit the 8-layer stack applied to each microbatch in turn on one device,
+     #11 launched 32 times (8 layers x 4 microbatches), the pipeline's ms
+     beside the sequential stack's and the peak memory; ``use_mesh`` on a
+     (2, 2) debug mesh of card 0, ``constrain`` returning its input, and
+     ``moe_parallel_mode`` for mixtral and granite at tp = 16; then the dry
+     run's records (``launch.dryrun`` on fake tensors, on the host) over
+     ``dryrun_cells()`` on the (16, 16) and (2, 16, 16) meshes: each cell's
+     traced and model FLOPs, bytes per device and dominant roofline term,
+     and the sweep's seconds.  The sweep runs in one worker process of this
+     script, started (spawn) right after the build, so that its minute on
+     one host core overlaps the kernel checks; phase p waits for it;
 
   t. training (run after phase f): qwen2.5-14b-hmatrix at full width and 8 layers
      (6 if the peak passes 72 GiB), bf16, random from a generator seeded on
@@ -182,7 +199,7 @@ Phases (any failure ends the run with a non-zero exit code):
      ``launch/train.py --arch whisper-tiny --smoke`` resuming from its
      directory.
 
-Kernel launch counts are set to 0 before each of phases 2 to 9, f, m and t
+Kernel launch counts are set to 0 before each of phases 2 to 9, f, m, p and t
 (and each model of phase g) and read after it: each phase must have launched the kernels of its own path
 (``PATH_KERNELS``), and every kernel must have run on the main path.
 Kernel, plain and library times are device times: CUDA events around calls
@@ -203,6 +220,7 @@ import gc
 import itertools
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -285,6 +303,7 @@ PATH_KERNELS = {
               "batched_block_cholesky_solve"),
     "mesh": ("batched_kernel_matmat", "batched_kernel_matvec", "batched_lowrank_matmat",
              "batched_aca", "batched_block_cholesky", "batched_block_cholesky_solve"),
+    "pipeline": ("hattention_nearfield",),
 }
 P_BUILD = dict(kernel="gaussian", k=16, c_leaf=2048, eta=1.5)
 K_BUILD = dict(kernel="gaussian", k=16, c_leaf=256, eta=1.5)
@@ -3665,10 +3684,173 @@ def run_mesh(pts_k, hm_p, hm_k, record) -> None:
     log(f"[mesh] phase m wall {out['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase p: the parallel and tooling layer
+# ---------------------------------------------------------------------------
+
+PIPE_LAYERS, PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 8, 4, 4, 4096
+PIPE_DEV = "cuda"      # a CPU rehearsal of the phase's control flow sets "cpu"
+
+
+def dryrun_cells() -> list:
+    """The dry run's cells in phase p: every admitted prefill and decode
+    cell and qwen2.5-14b-hmatrix's train cell (the other train cells take
+    the CLI: their traces run minutes on the host, ``PERF.md``)."""
+    from repro_torch.configs.registry import iter_cells
+    return ([(arch.name, shape.name) for arch, shape, runs, _ in iter_cells()
+             if runs and shape.kind != "train"] + [(LM_ARCH, "train_4k")])
+
+
+def dryrun_sweep(cells: list) -> tuple:
+    """``(records, seconds)`` of the dry run over ``cells`` on both production
+    meshes; the body of the worker process that phase p reads."""
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)           # fake tensors compute nothing
+    t0 = time.perf_counter()
+    recs = dryrun.run(cells, (False, True), save=False, log=lambda _msg: None)
+    return recs, time.perf_counter() - t0
+
+
+def start_dryrun_sweep():
+    """The dry-run sweep in one worker process (spawn: the parent holds a
+    CUDA context and threads); returns (pool, pending result)."""
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, pool.apply_async(dryrun_sweep, (dryrun_cells(),))
+
+
+def pipeline_devices() -> tuple:
+    n = torch.cuda.device_count() if PIPE_DEV == "cuda" else 1
+    if n >= PIPE_STAGES:
+        return tuple(torch.device("cuda", i) for i in range(PIPE_STAGES))
+    return (torch.device(PIPE_DEV, 0) if PIPE_DEV == "cuda" else torch.device("cpu"),) \
+        * PIPE_STAGES
+
+
+def pipeline_stage_fn(cfg):
+    """A stage: its blocks in order, train mode, no caches."""
+    from repro_torch.models import lm
+
+    def run(blocks, x):
+        positions = torch.arange(x.shape[1], device=x.device)
+        for block in blocks:
+            x, _ = lm.apply_block(block, cfg, "dense", x, mode="train", cache=None,
+                                  cache_len=None, positions=positions)
+        return x
+    return run
+
+
+def run_pipeline(record, count, sweep) -> None:
+    """Phase p (see the module docstring); ``count(key)`` reads and checks
+    the kernel counts of the main path, the pipeline; ``sweep`` is the
+    pending result of ``start_dryrun_sweep``."""
+    from repro_torch import _build
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.moe import moe_parallel_mode
+    from repro_torch.parallel.mesh_ctx import PanelMesh, constrain, current_mesh, use_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+    t_phase = time.perf_counter()
+    out = record.setdefault("pipeline", {})
+    cfg = get_arch(LM_ARCH).replace(n_layers=PIPE_LAYERS)
+    require(set(cfg.layer_kinds) == {"dense"}, f"pipeline: {LM_ARCH} has other kinds")
+    gen = torch.Generator(device=PIPE_DEV).manual_seed(SEED + 26)
+    params, t_init = wall_s(lambda: lm.init_params(gen, cfg))
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_MICRO, 1, PIPE_SEQ), generator=gen,
+                           device=PIPE_DEV)
+    stage_fn = pipeline_stage_fn(cfg)
+    per = PIPE_LAYERS // PIPE_STAGES
+    stages = [params.layers[i * per:(i + 1) * per] for i in range(PIPE_STAGES)]
+    devices = pipeline_devices()
+    mesh = PanelMesh(devices, ("stage",))
+    # the weights, and whatever earlier phases left allocated
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        xs = lm.embed_tokens(params.embed, tokens)              # (micro, 1, S, D)
+
+        def sequential():
+            return torch.stack([stage_fn(params.layers, x) for x in xs])
+
+        def pipelined():
+            with use_mesh(mesh):
+                return pipeline_apply(stages, xs, axis="stage", n_stages=PIPE_STAGES,
+                                      stage_fn=stage_fn)
+
+        want = sequential()
+        seq_ms = stream_ms(sequential, reps=2, warmup=0)
+        _build.reset_launches()
+        got, pipe_s = wall_s(pipelined)       # puts each stage on its device
+        count("pipeline")
+        nearfield = _build.LAUNCHES["hattention_nearfield"]
+        require(nearfield == PIPE_LAYERS * PIPE_MICRO,
+                f"pipeline: #11 launched {nearfield} times, not {PIPE_LAYERS * PIPE_MICRO}")
+        same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        finite = bool(torch.isfinite(got).all())
+        pipe_ms = stream_ms(pipelined, reps=2, warmup=0)
+        for stage in stages:                  # back on one device (a no-op on one card)
+            stage.to(devices[0])
+        seq_ms_2 = stream_ms(sequential, reps=2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card = smi("name,power.limit")
+    out.update(arch=LM_ARCH, layers=PIPE_LAYERS, stages=PIPE_STAGES, microbatches=PIPE_MICRO,
+               seq=PIPE_SEQ, devices=[str(d) for d in devices], init_s=t_init,
+               first_pipeline_s=pipe_s, nearfield_launches=nearfield, bit_identical=same,
+               finite=finite, sequential_ms=[seq_ms, seq_ms_2], pipeline_ms=pipe_ms,
+               peak_memory_gib=peak, allocated_before_forward_gib=base, card=card)
+    log(f"[pipeline] {LM_ARCH} at {PIPE_LAYERS} layers in {PIPE_STAGES} stages on "
+        f"{out['devices']}, {PIPE_MICRO} microbatches of 1 x {PIPE_SEQ}: #11 launched "
+        f"{nearfield} times; bit-identical to the sequential stack {same}; pipeline "
+        f"{pipe_ms:.2f} ms, sequential {seq_ms:.2f} / {seq_ms_2:.2f} ms (first pipeline call "
+        f"{pipe_s:.2f} s); peak {peak:.2f} GiB ({base:.2f} GiB allocated before the forward "
+        f"passes, weights included); {card}")
+    require(same and finite, "pipeline: the output is not the sequential stack's bits")
+    del params, stages, xs, got, want
+    torch.cuda.empty_cache()
+
+    # the mesh calls
+    debug = make_debug_mesh(2, 2, device=PIPE_DEV)
+    x = torch.ones(4, 8, 16, device=PIPE_DEV)
+    with use_mesh(debug):
+        require(current_mesh() is debug, "pipeline: use_mesh did not activate the mesh")
+        require(constrain(x, ("pod", "data"), None, "model") is x,
+                "pipeline: constrain did not return its input")
+    require(current_mesh() is None, "pipeline: the mesh outlived its use_mesh block")
+    with use_mesh(make_production_mesh()):
+        modes = {name: moe_parallel_mode(get_arch(name))
+                 for name in ("mixtral-8x7b", "granite-moe-1b-a400m")}
+    require(modes == {"mixtral-8x7b": "tp", "granite-moe-1b-a400m": "ep"},
+            f"pipeline: moe_parallel_mode at tp = 16: {modes}")
+    out["moe_parallel_mode_tp16"] = modes
+    log(f"[pipeline] use_mesh on {debug.shape} of {debug.devices[0]}, constrain returns its "
+        f"input; moe_parallel_mode at tp = 16: {modes}")
+
+    # the dry run
+    cells = dryrun_cells()
+    t0 = time.perf_counter()
+    recs, sweep_s = sweep.get(timeout=900)
+    waited_s = time.perf_counter() - t0
+    for r in recs:
+        log(f"[dryrun] {r['arch']:24s} {r['shape']:12s} {r['mesh']:6s} "
+            f"{dryrun.status_line(r)}")
+    bad = [(r["arch"], r["shape"], r["mesh"]) for r in recs if "error" in r or r.get("skipped")]
+    require(not bad, f"dryrun: cells failed or were skipped: {bad}")
+    require(len(recs) == 2 * len(cells), f"dryrun: {len(recs)} records for {len(cells)} cells")
+    require(all(math.isfinite(r["roofline"]["step_time_s"]) and r["traced"]["dot_flops"] > 0
+                for r in recs), "dryrun: a non-finite or empty count")
+    out["dryrun"] = {"cells": len(cells), "sweep_s": sweep_s, "waited_s": waited_s,
+                     "records": recs, "torch": torch.__version__}
+    log(f"[dryrun] {len(cells)} cells x 2 meshes in {sweep_s:.1f} s on one host core (torch "
+        f"{torch.__version__}; phase p waited {waited_s:.1f} s for it); {card}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[pipeline] phase p wall {out['phase_s']:.1f} s")
+
+
 def main(record: dict) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="0123456789fmtg",
-                        help="phases to run (default all: 0123456789fmtg); 0 is always run")
+    parser.add_argument("--phases", default="0123456789fmptg",
+                        help="phases to run (default all: 0123456789fmptg); 0 is always run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -3686,6 +3868,20 @@ def main(record: dict) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     info = _build.build_all()
+    sweep_pool = sweep = None
+    if "p" in args.phases:
+        sweep_pool, sweep = start_dryrun_sweep()
+    try:
+        return run_phases(args, record, card, info, sweep)
+    finally:
+        if sweep_pool is not None:
+            sweep_pool.terminate()
+            sweep_pool.join()
+
+
+def run_phases(args, record: dict, card: str, info: dict, sweep) -> int:
+    """Every phase after the build (see the module docstring)."""
+    from repro_torch import _build
     log(f"[0] kernels built in {info['seconds']:.1f} s into {info['dir']}")
     for name, rep in info["ptxas"].items():
         for line in rep.splitlines():
@@ -3832,6 +4028,10 @@ def main(record: dict) -> int:
         count_launches("mesh")
     del hm_p, hm_k
     torch.cuda.empty_cache()
+    if "p" in args.phases:
+        # the parallel and tooling layer, after phase m
+        run_pipeline(record, count_launches, sweep)
+        torch.cuda.empty_cache()
     if set(args.phases) & set("4567"):
         pts_p = points_p() if pts_p is None else pts_p
         pts_k = points_k() if pts_k is None else pts_k

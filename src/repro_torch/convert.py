@@ -101,6 +101,37 @@ def _block(tree: dict, t, kind: str = "dense"):
                  None if moe is None else MoE(*(t(moe[n]) for n in ("router", "wg", "wu", "wd"))))
 
 
+def layer_source(cfg, i: int) -> tuple:
+    """Where ``repro`` keeps decoder-only layer ``i``: ``("pattern", pos,
+    period)``, entry ``period`` of the stack at pattern position ``pos``, for
+    the layers before the tail, else ``("tail", j)``."""
+    pattern = cfg.block_pattern
+    stacked = (cfg.n_layers // len(pattern)) * len(pattern)
+    if i < stacked:
+        return "pattern", i % len(pattern), i // len(pattern)
+    return "tail", i - stacked
+
+
+def repro_path(cfg, name: str) -> tuple:
+    """``(path, periods)``: ``repro``'s pytree path (``"pattern/0/attn/wq"``)
+    of the port's parameter ``name`` (``"layers.0.attn.wq"``) and the length
+    of the stack on its leading axis that the port's tensor is one entry of
+    (``None`` for a leaf ``repro`` keeps whole).  The leaf names below a block
+    are the port's attribute names, the mapping ``lm_params_from_arrays``
+    reads ``repro``'s trees by."""
+    parts = name.split(".")
+    if cfg.is_encoder_decoder and parts[0] in ("enc_layers", "dec_layers"):
+        periods = cfg.n_enc_layers if parts[0] == "enc_layers" else cfg.n_layers
+        return "/".join([parts[0]] + parts[2:]), periods
+    if not cfg.is_encoder_decoder and parts[0] == "layers":
+        source = layer_source(cfg, int(parts[1]))
+        if source[0] == "pattern":
+            periods = cfg.n_layers // len(cfg.block_pattern)
+            return "/".join(["pattern", str(source[1])] + parts[2:]), periods
+        return "/".join(["tail", str(source[1])] + parts[2:]), None
+    return "/".join(parts), None
+
+
 def _sliced(tree, index):
     """Entry ``index`` of every leaf of a tree stacked on its leading axis."""
     if isinstance(tree, dict):
@@ -129,14 +160,15 @@ def lm_params_from_arrays(arrays: dict, cfg, *, device):
 
     if cfg.is_encoder_decoder:
         return _encdec_from_arrays(arrays, cfg, t)
-    pattern = cfg.block_pattern
-    n_periods = cfg.n_layers // len(pattern)
-    layers = [torch.nn.Module() if kind == "shared_attn"
-              else _block(_sliced(arrays["pattern"][pos], period), t, kind)
-              for period in range(n_periods) for pos, kind in enumerate(pattern)]
-    tail_kinds = cfg.layer_kinds[n_periods * len(pattern):]
-    layers += [torch.nn.Module() if kind == "shared_attn" else _block(tree, t, kind)
-               for tree, kind in zip(arrays["tail"], tail_kinds)]
+
+    def layer_tree(i):
+        source = layer_source(cfg, i)
+        if source[0] == "pattern":
+            return _sliced(arrays["pattern"][source[1]], source[2])
+        return arrays["tail"][source[1]]
+
+    layers = [torch.nn.Module() if kind == "shared_attn" else _block(layer_tree(i), t, kind)
+              for i, kind in enumerate(cfg.layer_kinds)]
     shared = _block(arrays["shared"], t) if "shared" in arrays else None
     head = None if cfg.tie_embeddings else t(arrays["lm_head"])
     return LM(cfg, t(arrays["embed"]), _norm(arrays["final_norm"], t), head, layers, shared)

@@ -21,6 +21,8 @@ from dataclasses import dataclass
 
 import torch
 
+LAYOUT = "level-packed[B,m,k]"
+
 
 def effective_ranks(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Per-block effective rank: index of the last nonzero column + 1.
@@ -148,6 +150,10 @@ class FactorStore:
     def items(self):
         self._check_resident()
         return self.levels.items()
+
+    @property
+    def layout(self) -> str:
+        return LAYOUT
 
     @property
     def is_spilled(self) -> bool:

@@ -256,6 +256,16 @@ def _dense_apply_points(points: torch.Tensor, plan: HMatrixPlan, kernel: Callabl
     return _scatter_rows(z_pad, y, g)
 
 
+def tree_kernel_name(kernel: Callable) -> str:
+    """``repro``'s name of a kernel callable: ``gaussian_kernel`` and
+    ``matern_kernel`` are ``gaussian`` and ``matern``, any other callable
+    keeps its ``__name__`` (``gaussian`` without one).  The port's own
+    lookup is ``geometry.kernel_name_of``, which raises on a callable it has
+    not registered."""
+    name = getattr(kernel, "__name__", "gaussian")
+    return {"gaussian_kernel": "gaussian", "matern_kernel": "matern"}.get(name, name)
+
+
 def apply_in_tree_order(tree: ClusterTree, plan: HMatrixPlan, kernel: Callable, k: int,
                         use_kernels: bool, points: torch.Tensor, factors, groups: dict,
                         x_pad: torch.Tensor) -> torch.Tensor:

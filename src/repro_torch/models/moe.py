@@ -12,6 +12,12 @@ assignments go to their own slots by indexing (dropped ones to a spare row
 that is thrown away), and each token's ``topk`` contributions are added
 from a ``(T, K, D)`` gather in k order, as ``repro``'s scatter-add adds
 them.  So a prefill on the card repeats bit for bit.
+
+Parallel modes (``moe_parallel_mode``, ``repro``'s rule): TP, every
+expert's d_ff sharded over "model", always applicable; EP, the experts
+sharded over "model", when ``num_experts % tp == 0`` (read from the active
+mesh, ``parallel.mesh_ctx``).  The mode picks the expert weights' specs
+(``parallel.sharding``); the single-process forward does not change with it.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh_ctx import axis_size
 from .layers import dense_init
 
 
@@ -40,6 +47,11 @@ def make_moe_params(gen: torch.Generator, cfg, dtype) -> MoE:
 
     router = dense_init(gen, d, e, torch.float32)
     return MoE(router, stack(d, f), stack(d, f), stack(f, d))
+
+
+def moe_parallel_mode(cfg) -> str:
+    tp = max(axis_size("model"), 1)
+    return "ep" if cfg.num_experts % tp == 0 and tp > 1 else "tp"
 
 
 def capacity(tokens: int, cfg, capacity_factor: float | None = None) -> int:

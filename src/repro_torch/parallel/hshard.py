@@ -51,7 +51,7 @@ from .._device import require_full_fp32
 from ..core.block_tree import HMatrixPlan
 from ..core.clustering import permute_from_tree, permute_to_tree
 from ..core.hmatrix import HMatrix, apply_in_tree_order, block_groups, operand, panel_entry
-from .mesh_ctx import PanelMesh, check_mesh, map_shards
+from .mesh_ctx import PanelMesh, check_mesh, map_shards, mesh_axes, mesh_axes_size
 
 
 def make_panel_mesh(n_devices: int | None = None, devices=None) -> PanelMesh:
@@ -84,9 +84,18 @@ def pad_panel_width(r: int, n_dev: int) -> int:
     return ((r + n_dev - 1) // n_dev) * n_dev
 
 
-def mesh_device_count(mesh) -> int:
-    """The shard count of ``mesh`` (its number of devices); 1 for no mesh."""
-    return 1 if mesh is None else len(check_mesh(mesh).devices)
+def mesh_device_count(mesh, axis=None) -> int:
+    """Devices along ``axis`` (default ALL axes) of ``mesh``: its shard
+    count; 1 for no mesh."""
+    if mesh is None:
+        return 1
+    return mesh_axes_size(mesh, mesh_axes(check_mesh(mesh), axis))
+
+
+def _shard_mesh(mesh, axis) -> PanelMesh:
+    """The one-axis mesh of ``mesh``'s shards along ``axis`` (default ALL
+    axes, flattened in row-major order: a one-axis mesh is itself)."""
+    return check_mesh(mesh).along(mesh_axes(mesh, axis))
 
 
 def mesh_panel(max_batch: int, mesh) -> tuple:
@@ -163,7 +172,7 @@ def _column_shares(hm: HMatrix, mesh: PanelMesh, chol=None) -> dict:
 
 
 def make_sharded_apply(hm: HMatrix, mesh: PanelMesh, shard: str = "rows",
-                       use_kernels: bool = True) -> Callable:
+                       use_kernels: bool = True, *, axis=None) -> Callable:
     """Multi-device ``apply(x) -> Z = H x`` over ``mesh``, the contract of
     :func:`repro_torch.core.hmatrix.make_apply`: ``x`` is ``(N,)`` or
     ``(N, R)`` in the original point order, the result lies on ``hm.device``.
@@ -174,8 +183,12 @@ def make_sharded_apply(hm: HMatrix, mesh: PanelMesh, shard: str = "rows",
     shards divide the work at every R; column shards each evaluate every
     block (see the module's docstring).  ``use_kernels`` as in
     ``make_apply``: on CUDA shards the kernels, on CPU shards their plain
-    versions.
+    versions.  ``axis`` (a name or a tuple of names of ``mesh``) picks the
+    axes to shard over, as ``repro``'s does: by default every axis,
+    flattened in row-major order; along a subset the shards are the devices
+    at index 0 of the other axes (see ``PanelMesh.along``).
     """
+    mesh = _shard_mesh(mesh, axis)
     n_dev = mesh_device_count(mesh)
     if shard == "columns":
         run = _colsharded_apply(hm, mesh, n_dev, use_kernels)
@@ -255,7 +268,7 @@ def _rowsharded_apply(hm: HMatrix, mesh: PanelMesh, n_dev: int, use_kernels: boo
 
 def make_sharded_solver(hm: HMatrix, sigma2: float, mesh: PanelMesh, tol: float = 1e-5,
                         max_iter: int = 300, precondition: bool = True,
-                        use_kernels: bool = True) -> Callable:
+                        use_kernels: bool = True, *, axis=None) -> Callable:
     """Multi-device ``solve(F) -> (C, SolveInfo)`` over ``mesh``, the contract
     of :func:`repro_torch.solve.make_solver` (block Jacobi or none).
 
@@ -269,10 +282,12 @@ def make_sharded_solver(hm: HMatrix, sigma2: float, mesh: PanelMesh, tol: float 
     sums round by the panel's width, so the bits are those of the unsharded
     solves of the shards' column slices).  Ragged R is padded with zero
     columns, which start converged, and sliced off; ``SolveInfo.iterations``
-    equals ``iters_per_column.max()``.
+    equals ``iters_per_column.max()``.  ``axis`` as in
+    :func:`make_sharded_apply`.
     """
     from ..solve.cg import PCGIteration, SolveInfo, build_preconditioner
 
+    mesh = _shard_mesh(mesh, axis)
     n_dev = mesh_device_count(mesh)
     tree = hm.tree
     tol2 = float(tol) * float(tol)

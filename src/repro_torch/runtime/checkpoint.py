@@ -41,6 +41,18 @@ def flatten_state(state, prefix: str = "") -> list:
     return [(prefix.rstrip("/"), state)]
 
 
+def tree_structure_fingerprint(state) -> str:
+    """A string that two states share when they have the same leaf paths,
+    shapes and dtypes (from :func:`flatten_state`; an int leaf by its type).
+    ``repro``'s is a JAX treedef: the two strings are comparable within one
+    package only."""
+    def leaf(val):
+        if isinstance(val, torch.Tensor):
+            return f"{str(val.dtype).removeprefix('torch.')}{list(val.shape)}"
+        return type(val).__name__
+    return ";".join(f"{path}:{leaf(val)}" for path, val in flatten_state(state))
+
+
 def _to_host(leaf):
     """(numpy array, dtype name) of a leaf, copied off the live tensor."""
     if isinstance(leaf, torch.Tensor):

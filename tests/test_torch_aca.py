@@ -32,17 +32,7 @@ from repro_torch.kernels.batched_aca.ops import batched_aca_level
 from repro_torch.kernels.batched_aca.ref import batched_aca_ref
 from repro_torch.kernels.phi import phi_matrix
 from repro_torch.solve import make_solver
-from torch_parity_util import export_hmatrix, rel_err
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: beside XLA's own pool in the same process, more
-    threads only contend (and the suite runs several workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_parity_util import export_hmatrix, one_torch_thread, rel_err  # noqa: F401
 
 
 def _recon_err(rows, cols, u, v, kernel):

@@ -21,6 +21,7 @@ from repro.core.geometry import gaussian_kernel as j_gaussian_kernel
 from repro.core.geometry import get_kernel as j_get_kernel
 from repro_torch.core import (FactorStore, aca_adaptive, aca_fixed_rank, batched_aca,
                               effective_ranks, gaussian_kernel, get_kernel, pad_adaptive)
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 
 def _sep_points(rng, m, n, d, gap=2.0):

@@ -19,6 +19,7 @@ from repro_torch.kernels.batched_aca.kernel import (RESIDENT_CLUSTERS, RESIDENT_
                                                     RESIDENT_STATIC_SMEM, RESIDENT_TARGET_SMEM,
                                                     aca_route, resident_fits,
                                                     resident_smem_bytes)
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 H100_SMEM_PER_BLOCK = 232448
 # problem P (N = 2^20, c_leaf = 2048; PERF.md section 4): level -> (blocks, m)

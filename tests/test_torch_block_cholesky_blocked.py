@@ -34,6 +34,7 @@ import torch
 
 from repro.kernels.batched_block_solve.kernel import batched_block_cholesky_t
 from repro_torch.kernels.batched_block_solve.ref import batched_block_cholesky_ref
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 TB, NB, TILE_STRIDE = 32, 128, 36
 SMEM_MAX = 232448        # bytes of shared memory a CTA may use on the H100

@@ -23,6 +23,7 @@ import torch
 
 from repro.kernels.batched_block_solve.kernel import batched_block_cholesky_solve_t
 from repro_torch.kernels.batched_block_solve.ref import batched_block_cholesky_solve_ref
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 TB, PR = 32, 128
 

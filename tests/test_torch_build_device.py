@@ -19,15 +19,7 @@ from repro.core import halton
 from repro_torch.core import (BuildReport, build_hmatrix, build_hmatrix_device,
                               build_hmatrix_device_report, dense_matvec_oracle,
                               eval_dense_leaves, make_apply)
-from torch_parity_util import rel_err
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_parity_util import one_torch_thread, rel_err  # noqa: F401
 
 
 def _dup_points(n, d):

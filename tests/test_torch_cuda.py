@@ -52,6 +52,7 @@ from repro_torch.kernels.batched_dense_matvec.ref import (batched_kernel_matmat_
 from repro_torch.kernels.morton.ops import morton_encode
 from repro_torch.kernels.morton.ref import morton_encode_ref
 from repro_torch.kernels.phi import phi_matrix
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 
 def _rs(seed):

@@ -20,6 +20,7 @@ from repro_torch.runtime.checkpoint import CheckpointManager, flatten_state
 from repro_torch.runtime.fault_tolerance import PreemptionHandler
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.step import make_train_step
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 DCFG = DataConfig(vocab_size=512, seq_len=64, global_batch=4, seed=3)
 
@@ -171,3 +172,17 @@ def test_launch_train_raises_without_cuda_when_no_device_is_given(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         train_launch.main(["--arch", "qwen2.5-14b-hmatrix", "--smoke", "--steps", "1",
                            "--ckpt-dir", str(tmp_path)])
+
+
+def test_tree_structure_fingerprint_reads_paths_shapes_and_dtypes():
+    from repro_torch.runtime.checkpoint import tree_structure_fingerprint
+    state = _state("float32", 1)
+    same = tree_structure_fingerprint(state)
+    assert same == tree_structure_fingerprint(state)
+    assert "step:int" in same and "params/embed:" in same and "opt/m/embed:float32" in same
+    other = {"step": state["step"], "params": state["params"],
+             "opt": {"m": state["opt"]["m"]}}
+    assert tree_structure_fingerprint(other) != same
+    bf16 = {key: (val.to(torch.bfloat16) if key == "embed" else val)
+            for key, val in state["opt"]["m"].items()}
+    assert tree_structure_fingerprint({**state, "opt": {**state["opt"], "m": bf16}}) != same

@@ -30,6 +30,7 @@ from repro_torch.kernels.batched_dense_matvec.ops import (batched_kernel_matmat,
                                                           batched_kernel_matvec_level)
 from repro_torch.kernels.batched_dense_matvec.ref import (batched_kernel_matmat_level_ref,
                                                           batched_kernel_matvec_level_ref)
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 
 def _rel(a, b):

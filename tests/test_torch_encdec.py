@@ -28,7 +28,7 @@ from repro_torch.models import encdec
 from repro_torch.models.api import count_params, get_model
 from repro_torch.serve.step import greedy_sample, make_decode_step, make_prefill_step
 
-from torch_parity_util import randomise, rel_err
+from torch_parity_util import one_torch_thread, randomise, rel_err  # noqa: F401
 
 ARCH = "whisper-tiny"
 _CACHE: dict = {}

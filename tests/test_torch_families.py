@@ -36,7 +36,7 @@ from repro_torch.models import lm
 from repro_torch.models.api import count_params
 from repro_torch.serve.step import greedy_sample, make_decode_step, make_prefill_step
 
-from torch_parity_util import randomise, rel_err
+from torch_parity_util import one_torch_thread, randomise, rel_err  # noqa: F401
 
 ARCHS = ["gemma-7b", "smollm-135m", "phi3-medium-14b", "chameleon-34b",
          "granite-moe-1b-a400m", "mixtral-8x7b", "xlstm-1.3b", "zamba2-7b"]

@@ -44,7 +44,7 @@ from repro_torch.runtime.checkpoint import CheckpointManager, flatten_state
 from repro_torch.train.optimizer import AdamWConfig, apply_updates
 from repro_torch.train.step import make_loss_fn, make_train_step
 
-from torch_parity_util import randomise, rel_err
+from torch_parity_util import one_torch_thread, randomise, rel_err  # noqa: F401
 
 SEQ, BATCH = 72, 2
 LOSS_LIMIT, GRAD_LIMIT, PARAM_LIMIT, MOMENT_LIMIT = 1e-5, 1e-4, 1e-5, 1e-4

@@ -31,14 +31,7 @@ from repro_torch.serve.faults import (BreakerPolicy, ChaosSpec, CircuitBreaker,
                                       run_with_restarts)
 from repro_torch.serve.runtime import PanelRuntime
 from repro_torch.serve.tenancy import MultiTenantRuntime, TenantSpec
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 
 def _double(panel):

@@ -10,6 +10,7 @@ from repro.analysis import flops as flops_jax
 from repro.configs import registry as registry_jax
 from repro_torch.analysis import flops
 from repro_torch.configs import registry
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 CELLS = [(arch.name, shape.name) for arch, shape, _, _ in registry.iter_cells()]
 

@@ -14,6 +14,7 @@ from repro.core import geometry as jgeo
 from repro.kernels import _phi as jphi
 from repro_torch.core import geometry as tgeo
 from repro_torch.kernels import phi as tphi
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("n,d", [(1, 2), (100, 2), (1500, 2), (777, 3), (300, 1)])

@@ -44,19 +44,11 @@ from repro_torch.kernels.batched_schur_update.ops import (batched_schur_dense,
 from repro_torch.kernels.batched_trsm_lowrank.ops import batched_trsm_panels
 from repro_torch.solve import make_solver
 from test_build_device import CASES
-from torch_parity_util import export_hmatrix
+from torch_parity_util import export_hmatrix, one_torch_thread  # noqa: F401
 
 SIGMA2 = 1e-2
 DENSE_ATOL = 5e-4
 LOWRANK_ATOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pair(n, scale, kernel="gaussian", precompute=True):

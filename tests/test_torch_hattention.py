@@ -16,7 +16,7 @@ import torch
 from repro.core import hattention as hat_jax
 from repro_torch.core import hattention as hat
 
-from torch_parity_util import rel_err
+from torch_parity_util import one_torch_thread, rel_err  # noqa: F401
 
 
 @pytest.mark.parametrize("seq,c_leaf", [(256, 32), (512, 64), (1024, 64)])

@@ -30,7 +30,7 @@ from repro_torch.kernels.hattention_block.ref import (hattention_nearfield_bwd_r
                                                       hattention_nearfield_ref)
 from repro_torch.models.layers import chunked_attention
 
-from torch_parity_util import rel_err
+from torch_parity_util import one_torch_thread, rel_err  # noqa: F401
 from test_torch_hattention import _smooth_qkv
 
 

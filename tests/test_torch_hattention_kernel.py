@@ -16,6 +16,7 @@ import torch
 from repro.kernels.hattention_block.ops import hattention_nearfield_op as nearfield_jax
 from repro_torch.kernels.hattention_block.ops import hattention_nearfield_op
 from repro_torch.kernels.hattention_block.ref import hattention_nearfield_ref
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 
 def _qkv(bh, nl, c, d, seed):

@@ -11,6 +11,7 @@ exact integers of the plan.
 """
 from repro_torch.core import build_hmatrix, halton
 from repro_torch.harith import hlu
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 RETRUNCATION_SLOTS = {"sll_l": 2, "smx_l": 3}   # slot -> column of the target tile
 

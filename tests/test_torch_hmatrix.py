@@ -19,17 +19,7 @@ from repro_torch.convert import hmatrix_from_arrays
 from repro_torch.core import (build_hmatrix, dense_matvec_oracle, diagonal_blocks, make_apply,
                               make_matvec)
 from repro_torch.core.hmatrix import block_group
-from torch_parity_util import export_hmatrix, rel_err
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: beside XLA's own pool in the same process, more
-    threads only contend (and the suite runs several workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_parity_util import export_hmatrix, one_torch_thread, rel_err  # noqa: F401
 
 
 def _problem(n, kernel, seed, c_leaf=64, k=8, precompute=True):
@@ -129,3 +119,24 @@ def test_apply_operand_checks_and_empty_panel():
     assert rel_err(make_apply(hm_rc)(x).numpy(), make_apply(flat)(x).numpy()) <= 5e-2
     report = hm.memory_report()
     assert report["factor_bytes"] > 0 and report["dense_equivalent_bytes"] == 300 * 300 * 4
+
+
+def test_tree_kernel_name_and_store_layout_equal_reference():
+    from repro.core import factor_store as j_factor_store
+    from repro.core import geometry as j_geometry
+    from repro.core.hmatrix import tree_kernel_name as j_tree_kernel_name
+    from repro_torch.core import factor_store, geometry
+    from repro_torch.core.hmatrix import tree_kernel_name
+
+    def custom(y, yp):
+        return y
+
+    for j_fn, fn in ((j_geometry.gaussian_kernel, geometry.gaussian_kernel),
+                     (j_geometry.matern_kernel, geometry.matern_kernel), (custom, custom),
+                     (lambda y, yp: y, lambda y, yp: y), (object(), object())):
+        assert tree_kernel_name(fn) == j_tree_kernel_name(j_fn)
+    assert tree_kernel_name(geometry.gaussian_kernel) == "gaussian"
+    assert factor_store.LAYOUT == j_factor_store.LAYOUT == "level-packed[B,m,k]"
+    hm = build_hmatrix(torch.from_numpy(np.asarray(j_halton(256, 2))), "gaussian", k=4,
+                       c_leaf=32, precompute=True, device="cpu")
+    assert hm.factors.layout == j_factor_store.LAYOUT

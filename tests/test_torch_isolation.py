@@ -40,7 +40,9 @@ from repro_torch.kernels.hattention_block import kernel as nearfield_kernel
 from repro_torch.kernels.hattention_block.ops import hattention_nearfield_op
 from repro_torch.configs.registry import get_smoke
 from repro_torch.launch import serve as serve_launch
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models.api import get_model
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -57,8 +59,14 @@ for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(" ".join(names))
 print(len(names))
 """
+# the parallel and tooling layer: each must be walked (and import without jax)
+LAYER_MODULES = ("repro_torch.parallel.mesh_ctx", "repro_torch.parallel.sharding",
+                 "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                 "repro_torch.analysis.roofline", "repro_torch.analysis.opcount")
 
 
 def test_every_port_module_imports_without_jax_or_repro():
@@ -66,7 +74,10 @@ def test_every_port_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(ROOT / "chip_smoke.py")],
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    lines = out.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 20
+    walked = set(lines[-2].split())
+    assert set(LAYER_MODULES) <= walked, set(LAYER_MODULES) - walked
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -106,6 +117,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         get_model(get_smoke("qwen2.5-14b-hmatrix"))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_launch.main(["--arch", "qwen2.5-14b-hmatrix", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_debug_mesh()
 
 
 def _meta(*shape):

@@ -30,6 +30,7 @@ from repro_torch.kernels.batched_block_solve.ref import (batched_block_cholesky_
 from repro_torch.kernels.batched_dense_matvec.ops import batched_kernel_matmat
 from repro_torch.kernels.batched_schur_update.ops import batched_schur_dense
 from repro_torch.kernels.batched_trsm_lowrank.ops import batched_trsm_panels
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 
 def _rs(seed):

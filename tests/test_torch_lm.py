@@ -31,7 +31,7 @@ from repro_torch.models import lm
 from repro_torch.models.api import count_params, count_params_analytic
 from repro_torch.serve.step import greedy_sample, make_decode_step, make_prefill_step
 
-from torch_parity_util import rel_err
+from torch_parity_util import one_torch_thread, rel_err  # noqa: F401
 
 ARCHS = ["qwen2.5-14b", "qwen2.5-14b-hmatrix"]
 _CACHE: dict = {}

@@ -31,6 +31,7 @@ from repro_torch.kernels.batched_aca.kernel import MAX_KR, lowrank_column_chunks
 from repro_torch.kernels.batched_aca.ops import batched_lowrank_matmat_level
 from repro_torch.kernels.batched_aca.ref import (batched_lowrank_matmat_level_ref,
                                                  batched_lowrank_matmat_ref)
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 # a level of 8 clusters: row clusters 3 and 5 hold several blocks (and the
 # others pad slots of the table), cluster 6 none

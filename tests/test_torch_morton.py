@@ -16,6 +16,7 @@ from repro.kernels.morton.kernel import TILE, morton_encode_t
 from repro_torch.core.morton import bits_per_dim
 from repro_torch.kernels.morton.ops import morton_encode
 from repro_torch.kernels.morton.ref import morton_encode_ref
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 
 def _unit_points(n, d, seed):

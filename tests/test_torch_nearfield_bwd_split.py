@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.kernels.hattention_block.ref import (NEG, hattention_nearfield_bwd_ref,
                                                       hattention_nearfield_ref)
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 SPLIT_LIMIT = 1e-5
 # the kernel recomputes in #11's order every score within CAND |q| |k| of

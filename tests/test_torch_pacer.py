@@ -14,6 +14,7 @@ import pytest
 
 from repro_torch.serve.runtime import LaunchPacer, PanelRuntime
 from repro_torch.serve.tenancy import MultiTenantRuntime, TenantSpec
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 N = 8
 CLOSE_TIMEOUT_S = 30.0

@@ -32,17 +32,9 @@ from repro_torch.core import (RecompressReport, build_hmatrix, build_hmatrix_dev
 from repro_torch.kernels.batched_recompress.ops import GRAM_TOL_FLOOR, batched_recompress
 from repro_torch.kernels.batched_recompress.ref import batched_recompress_ref
 from test_build_device import CASES
-from torch_parity_util import export_hmatrix, rel_err
+from torch_parity_util import export_hmatrix, one_torch_thread, rel_err  # noqa: F401
 
 CUT_MARGIN = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _decaying_factors(rng, b=6, m=48, n=40, k=12):

@@ -34,19 +34,9 @@ from repro_torch.serve.runtime import (LaunchPacer, PanelRuntime, pad_panel_widt
                                        panel_width_buckets, width_for)
 from repro_torch.serve.step import HMatrixServer, HMatrixSolveServer, _serve_in_panels
 from repro_torch.solve import make_solver
-from torch_parity_util import export_hmatrix, rel_err
+from torch_parity_util import export_hmatrix, one_torch_thread, rel_err  # noqa: F401
 
 SIGMA2 = 0.5
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: beside XLA's own pool in the same process, more
-    threads only contend (and the suite runs several workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _system(n, r, seed=0):

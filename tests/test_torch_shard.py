@@ -36,20 +36,10 @@ from repro_torch.parallel.hshard import share_bounds
 from repro_torch.serve.step import HMatrixServer, HMatrixSolveServer
 from repro_torch.serve.tenancy import MultiTenantRuntime, apply_tenant, solve_tenant
 from repro_torch.solve import build_preconditioner, make_solver, pcg_tree_ordered
-from torch_parity_util import export_hmatrix, rel_err
+from torch_parity_util import export_hmatrix, one_torch_thread, rel_err  # noqa: F401
 
 N_DEV = 4
 SIGMA2 = 0.5
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: beside XLA's own pool in the same process, more
-    threads only contend (and the suite runs several workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -406,3 +396,26 @@ def test_single_device_solve_bits_unchanged_by_the_split(precondition):
     c, info = make_solver(hm, SIGMA2, tol=1e-6, max_iter=600, precondition=precondition)(f)
     assert info.iterations == want[1]
     np.testing.assert_array_equal(info.iters_per_column, want[2].numpy())
+
+
+@pytest.mark.parametrize("shard", ["columns", "rows"])
+def test_axis_selects_the_shards_of_a_two_axis_mesh(shard, mesh):
+    """``axis=``, ``repro``'s argument: by default every axis, flattened in
+    row-major order (a (2, 2) mesh gives the bits of the one-axis mesh of
+    four); one axis shards over its devices alone."""
+    hm, x = _system(700, 8, seed=11)
+    two = PanelMesh(("cpu",) * N_DEV, ("data", "model"), (2, 2))
+    assert mesh_device_count(two) == N_DEV and mesh_device_count(two, "model") == 2
+    assert mesh_device_count(mesh, None) == N_DEV
+    z1 = make_sharded_apply(hm, mesh, shard=shard)(x)
+    assert torch.equal(make_sharded_apply(hm, two, shard=shard)(x), z1)
+    assert torch.equal(make_sharded_apply(hm, two, shard=shard, axis=("data", "model"))(x), z1)
+    z2 = make_sharded_apply(hm, make_panel_mesh(devices=("cpu",) * 2), shard=shard)(x)
+    assert torch.equal(make_sharded_apply(hm, two, shard=shard, axis="model")(x), z2)
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        make_sharded_apply(hm, two, shard=shard, axis="pod")
+    if shard == "columns":
+        c1, i1 = make_sharded_solver(hm, SIGMA2, mesh, tol=1e-5)(x)
+        c2, i2 = make_sharded_solver(hm, SIGMA2, two, tol=1e-5)(x)
+        assert torch.equal(c1, c2)
+        assert np.array_equal(i1.iters_per_column, i2.iters_per_column)

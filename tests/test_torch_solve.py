@@ -18,17 +18,7 @@ from repro.solve import make_solver as j_make_solver
 from repro_torch.convert import hmatrix_from_arrays
 from repro_torch.core import build_hmatrix, dense_kernel_matrix, make_apply
 from repro_torch.solve import SolveInfo, build_preconditioner, host_loop_cg, make_solver
-from torch_parity_util import export_hmatrix
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread: beside XLA's own pool in the same process, more
-    threads only contend (and the suite runs several workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_parity_util import export_hmatrix, one_torch_thread  # noqa: F401
 
 
 def _system(n, scale, r, seed, c_leaf=64):

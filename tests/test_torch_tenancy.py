@@ -18,7 +18,6 @@ from collections import deque
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.core import build_hmatrix as j_build_hmatrix
 from repro.core import halton as j_halton
@@ -31,17 +30,9 @@ from repro_torch.serve.runtime import PanelRuntime
 from repro_torch.serve.step import HMatrixServer, HMatrixSolveServer
 from repro_torch.serve.tenancy import (MultiTenantRuntime, TenantSpec, apply_tenant,
                                        solve_tenant)
-from torch_parity_util import export_hmatrix, rel_err
+from torch_parity_util import export_hmatrix, one_torch_thread, rel_err  # noqa: F401
 
 SIGMA2 = 0.5
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _system(n, r, seed=0):

@@ -15,6 +15,7 @@ import torch
 from repro_torch.core import build_hmatrix, build_hmatrix_device, make_apply
 from repro_torch._device import require_full_fp32, tf32_matmul_enabled
 from repro_torch.solve import make_solver
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 MATMUL = torch.backends.cuda.matmul
 

@@ -35,7 +35,7 @@ from repro_torch.train.optimizer import (AdamWConfig, apply_updates, global_norm
                                          init_opt_state, lr_schedule)
 from repro_torch.train.step import make_loss_fn, make_train_step
 
-from torch_parity_util import rel_err
+from torch_parity_util import one_torch_thread, rel_err  # noqa: F401
 
 
 def _jax_cfg(cfg: AdamWConfig):

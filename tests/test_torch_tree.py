@@ -23,6 +23,7 @@ from repro_torch.core import (FactorStore, batched_aca, build_block_tree, build_
                               permute_from_tree, permute_to_tree)
 from repro_torch.core.morton import quantize
 from test_build_device import CASES
+from torch_parity_util import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("d", [1, 2, 3])

@@ -4,8 +4,23 @@
 that ``repro_torch.convert.hmatrix_from_arrays`` takes, so both packages
 apply the same tree, plan and factors.  ``randomise`` gives an LM parameter
 tree's constant-initialised leaves seeded random values.
+``one_torch_thread`` is the autouse fixture every ``tests/test_torch_*.py``
+imports (a fixture imported into a test module is active there).
+``jax_mesh`` makes a ``jax.sharding.AbstractMesh`` ``repro``'s active mesh.
 """
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread: beside XLA's own pool in the same process, more
+    threads only contend (and the suite runs several workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def export_hmatrix(hm) -> dict:
@@ -52,3 +67,24 @@ def randomise(tree, rng):
         fn = _RANDOMISED.get(getattr(path[-1], "key", None))
         return x if fn is None else jnp.asarray(fn(rng, x).astype(np.float32))
     return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+class jax_mesh:
+    """``repro``'s active mesh for the block: an ``AbstractMesh`` of
+    ``sizes`` over ``names``, set through ``repro.parallel.mesh_ctx._state``
+    (``repro``'s ``use_mesh`` enters the mesh, which an abstract mesh does not
+    support) and restored in a finally.  No forced host devices."""
+
+    def __init__(self, sizes, names):
+        from jax.sharding import AbstractMesh
+        self.mesh = AbstractMesh(tuple(sizes), tuple(names))
+
+    def __enter__(self):
+        from repro.parallel import mesh_ctx
+        self.prev = getattr(mesh_ctx._state, "mesh", None)
+        mesh_ctx._state.mesh = self.mesh
+        return self.mesh
+
+    def __exit__(self, *exc):
+        from repro.parallel import mesh_ctx
+        mesh_ctx._state.mesh = self.prev
