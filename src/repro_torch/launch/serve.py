@@ -123,7 +123,7 @@ def main(argv=None) -> dict:
           f"({b * s / out['prefill_s']:.0f} tok/s)")
     print(f"decode: {args.decode_steps - 1} steps in {out['decode_s']:.3f}s "
           f"({b * (args.decode_steps - 1) / max(out['decode_s'], 1e-9):.0f} tok/s)")
-    print("generated token ids (first row):", out["tokens"][0].tolist())
+    print("generated token ids (first row):", out["tokens"][0].cpu().tolist())
     return out
 
 

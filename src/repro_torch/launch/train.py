@@ -70,7 +70,7 @@ def train_loop(cfg, args, device: torch.device):
             if step % args.log_every == 0 or step == args.steps - 1:
                 # one device read for every logged scalar
                 loss, lr, gnorm = torch.stack(
-                    [metrics["loss"], metrics["lr"], metrics["grad_norm"]]).tolist()
+                    [metrics["loss"], metrics["lr"], metrics["grad_norm"]]).cpu().tolist()
                 dt = time.perf_counter() - t_last
                 t_last = time.perf_counter()
                 slow = straggler.record("host0", dt)

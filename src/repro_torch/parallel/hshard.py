@@ -285,7 +285,7 @@ def make_sharded_solver(hm: HMatrix, sigma2: float, mesh: PanelMesh, tol: float 
     equals ``iters_per_column.max()``.  ``axis`` as in
     :func:`make_sharded_apply`.
     """
-    from ..solve.cg import PCGIteration, SolveInfo, build_preconditioner
+    from ..solve.cg import PCGIteration, SolveInfo, any_active, build_preconditioner
 
     mesh = _shard_mesh(mesh, axis)
     n_dev = mesh_device_count(mesh)
@@ -307,8 +307,8 @@ def make_sharded_solver(hm: HMatrix, sigma2: float, mesh: PanelMesh, tol: float 
         states = map_shards(mesh, lambda _i, dev, pcg, b: pcg.init(b.to(dev).contiguous()),
                             pcgs, torch.tensor_split(b_pad, n_dev, dim=1))
         it = 0
-        while it < max_iter and bool(_gather_columns(
-                [s.active[None, :] for s in states], hm.device).any()):
+        while it < max_iter and any_active(_gather_columns(
+                [s.active[None, :] for s in states], hm.device)):
             states = map_shards(mesh, lambda _i, _dev, pcg, s: pcg.step(s, it), pcgs, states)
             it += 1
         x = permute_from_tree(tree, _gather_columns([s.x for s in states], hm.device))[:, :r]

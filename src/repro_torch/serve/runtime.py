@@ -35,16 +35,23 @@ share:
 * **Lazy fetch.**  The result stays on the device in a per-panel record;
   the first :meth:`PanelFuture.result` of the panel waits on the panel's
   event and copies the rows to the host once for all its futures.
+* **Strict transfers.**  With ``REPRO_STRICT_TRANSFERS=1`` (read on each
+  launch) the upload, the launch and the device transpose run under
+  ``torch.cuda.set_sync_debug_mode("error")`` (:func:`strict_transfers`):
+  a launch callable that synchronizes (``.item()``, a blocking copy, a
+  stream synchronize) raises, and the error reaches the panel's futures.
+  The mode is process-wide, not thread-local as ``repro``'s
+  ``jax.transfer_guard`` is, so the runtime's own fetch, relaunch and
+  failure paths use only operations it lets through: pinned
+  ``non_blocking`` copies and waits on CUDA events.
 
 :class:`LaunchPacer` and :class:`PanelLane` are the two reusable pieces:
 ``serve.tenancy.MultiTenantRuntime`` hosts many lanes behind one pacer.
-
-There is no twin of ``repro``'s ``REPRO_STRICT_TRANSFERS`` switch: it is
-``jax.transfer_guard``, which PyTorch does not have.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import deque
@@ -53,7 +60,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, sync_debug_window, to_host
 from ..parallel.hshard import pad_panel_width
 from .faults import (CircuitOpenError, FaultInjector, LaneResilience, NaNGuard, OverloadedError,
                      ResiliencePolicy, resolve_chaos)
@@ -85,9 +92,19 @@ def width_for(count: int, widths: Sequence[int]) -> int:
     raise ValueError(f"{count} requests exceed the panel width {widths[-1]}")
 
 
+def strict_transfers(device):
+    """The twin of ``repro``'s ``REPRO_STRICT_TRANSFERS=1`` guard around a
+    launch: a sync-debug window (``_device.sync_debug_window``) on a CUDA
+    ``device`` while the variable is ``1``, read on each call; else, and on
+    the CPU, nothing."""
+    if os.environ.get("REPRO_STRICT_TRANSFERS") == "1":
+        return sync_debug_window(device)
+    return contextlib.nullcontext()
+
+
 def _host(vec):
     """A request as host data (a tensor on any device comes to the host)."""
-    return vec.detach().cpu().numpy() if isinstance(vec, torch.Tensor) else vec
+    return to_host(vec.detach()).numpy() if isinstance(vec, torch.Tensor) else vec
 
 
 def as_vector(vec) -> np.ndarray:
@@ -145,12 +162,9 @@ def fetch_rows(out: torch.Tensor) -> np.ndarray:
 
 def rows_to_host(rows: torch.Tensor) -> np.ndarray:
     """Device rows on the host, copied into pinned memory from a card (a
-    pageable destination copies at a fraction of the link's rate)."""
-    if rows.device.type != "cuda":
-        return rows.numpy()
-    host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-    host.copy_(rows)
-    return host.numpy()
+    pageable destination copies at a fraction of the link's rate) without
+    a blocking copy (``_device.to_host``)."""
+    return to_host(rows).numpy()
 
 
 def _on_stream(stream):
@@ -395,9 +409,13 @@ class PanelLane:
         return int(self.store.nbytes()["total"]) if self.store is not None else 0
 
     def synchronize(self):
-        """Wait until everything this lane queued on its stream has run."""
+        """Wait until everything this lane queued on its stream has run: on an
+        event recorded there (a stream synchronize is rejected inside a
+        strict window, which may be open on another thread)."""
         if self.stream is not None:
-            self.stream.synchronize()
+            queued = torch.cuda.Event()
+            queued.record(self.stream)
+            queued.synchronize()
 
     def launch_panel(self, chunk, pacer: LaunchPacer, on_retire=None):
         """Pack ``chunk`` into the current staging buffer, pad it to its width
@@ -407,7 +425,8 @@ class PanelLane:
         order is the staging-buffer reuse guarantee.  Returns ``(w, None,
         dispatch_s, pack_s)``, or ``(None, exc, dispatch_s, pack_s)`` when the
         launch raised; the owning runtime decides between failing and
-        retrying, so the lane never fails futures itself.
+        retrying, so the lane never fails futures itself.  The upload, the
+        launch and the transpose run inside :func:`strict_transfers`.
         """
         w = width_for(len(chunk), self.widths)
         buf = self._staging[self._buf]
@@ -416,7 +435,7 @@ class PanelLane:
         pack_s = time.perf_counter() - t0
         t0 = time.monotonic()
         try:
-            with _on_stream(self.stream):
+            with _on_stream(self.stream), strict_transfers(self.device):
                 done = Completion(self.stream)
                 out = self._launch(upload_rows(buf[:w], self.device))
                 rows = out.t().contiguous()     # the fetch's layout, made on the device
@@ -430,8 +449,10 @@ class PanelLane:
         guard = None
         if self._guard_outputs:
             # the buffer is repacked once the pacer retires this launch: keep
-            # a host copy of the rows for the guard's relaunch
-            saved = buf[:w].clone()
+            # a pinned host copy of the rows for the guard's relaunch, whose
+            # upload then does not block
+            saved = staging_buffer(w, self.n, self.device)
+            saved.copy_(buf[:w])
             guard = NaNGuard(len(chunk), lambda: self.relaunch(saved), self._on_relaunch)
         record = _PanelRecord(rows, done, guard)
         pacer.commit(done, on_retire)

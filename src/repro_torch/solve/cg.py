@@ -7,7 +7,8 @@ Port of ``repro.solve.cg``.  The reference runs the whole solve as one
     flag; a column whose residual norm drops below ``tol`` freezes (its
     ``alpha``/``beta`` are masked to zero), and the loop ends when no column
     is active or ``max_iter`` is hit.  The host reads ``active.any()`` once
-    per iteration, a small sync next to one H-apply;
+    per iteration, a small sync next to one H-apply (:func:`any_active`,
+    queue 1 B1);
   * the operator is :func:`repro_torch.core.hmatrix.apply_in_tree_order` on
     tree-ordered panels, so the Morton permutation is paid once per solve;
   * block Jacobi: the diagonal leaf blocks ``A_ii + sigma^2 I`` are
@@ -31,7 +32,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .._device import require_full_fp32
+from .._device import documented_sync, require_full_fp32, to_host
 from ..core.clustering import permute_from_tree, permute_to_tree
 from ..core.hmatrix import HMatrix, apply_in_tree_order, diagonal_blocks, operand
 from ..harith.hlu import HLUFactors, hlu_solve_panels
@@ -65,8 +66,8 @@ class SolveInfo:
         """Materialise every field on the host and return self."""
         with self._lock:
             if self._host is None:
-                self._host = (int(self._it), self._iters_col.cpu().numpy(),
-                              self._res.cpu().numpy())
+                self._host = (int(self._it), to_host(self._iters_col).numpy(),
+                              to_host(self._res).numpy())
                 self._it = self._iters_col = self._res = None
         return self
 
@@ -114,6 +115,14 @@ def host_loop_cg(matmat: Callable, b: torch.Tensor, tol: float = 1e-5,
         p = r + beta[None, :] * p
         rs = rs_new
     return x, max_iter
+
+
+def any_active(active: torch.Tensor) -> bool:
+    """The PCG's one host read a trip: is any column still active?  A
+    documented sync (queue 1 B1), so it is let through a strict window
+    (``_device.documented_sync``)."""
+    with documented_sync():
+        return bool(active.any())
 
 
 def build_preconditioner(hm: HMatrix, sigma2: float, use_kernels: bool = True) -> torch.Tensor:
@@ -237,7 +246,7 @@ def pcg_tree_ordered(tree, plan, kernel, k: int, use_kernels: bool, sigma2: floa
                        groups, chol, b_pad.device, b_pad.dtype)
     state = pcg.init(b_pad)
     it = 0
-    while it < max_iter and bool(state.active.any()):
+    while it < max_iter and any_active(state.active):
         state = pcg.step(state, it)
         it += 1
     return state.x, it, state.iters_col, state.rr
