@@ -3,7 +3,8 @@
 Two scopes, as in ``scripts/hlint``:
 
 * **strict** device-path modules: ``solve/``, ``serve/``,
-  ``core/hmatrix.py``, ``parallel/hshard.py``, and every
+  ``core/hmatrix.py``, ``parallel/hshard.py``, ``obs.py`` (the launch's
+  :class:`Completion` and the tracer's event reads), and every
   ``kernels/<pkg>/ops.py`` and ``kernels/<pkg>/kernel.py`` (a launch
   wrapper must not synchronize).  Besides the implicit syncs below, every
   host boundary (``.cpu()``, ``.numpy()``, ``.to(<host device>)``,
@@ -46,7 +47,7 @@ RULE = "host-sync"
 
 PKG = "src/repro_torch/"
 STRICT_PREFIXES = (PKG + "solve/", PKG + "serve/")
-STRICT_FILES = (PKG + "core/hmatrix.py", PKG + "parallel/hshard.py")
+STRICT_FILES = (PKG + "core/hmatrix.py", PKG + "parallel/hshard.py", PKG + "obs.py")
 ORCH_PREFIXES = (PKG + "launch/", "examples/torch_")
 
 # attributes and methods that read metadata, never device data; SolveInfo's

@@ -28,6 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import obs
 from .._device import as_f32, require_full_fp32, resolve_device
 from .aca import batched_aca
 from .block_tree import HMatrixPlan, build_block_tree
@@ -249,11 +250,13 @@ def _dense_apply_points(points: torch.Tensor, plan: HMatrixPlan, kernel: Callabl
     else:
         from ..kernels.batched_dense_matvec.ref import (
             batched_kernel_matmat_level_ref as matmat, batched_kernel_matvec_level_ref as matvec)
-    if x_pad.shape[1] == 1:
-        y = matvec(points, g.rows, g.cols, x_pad[:, 0], c, kname)[:, :, None]
-    else:
-        y = matmat(points, g.rows, g.cols, x_pad.contiguous(), c, kname)
-    return _scatter_rows(z_pad, y, g)
+    with obs.device_span("apply.dense", x_pad):
+        if x_pad.shape[1] == 1:
+            y = matvec(points, g.rows, g.cols, x_pad[:, 0], c, kname)[:, :, None]
+        else:
+            y = matmat(points, g.rows, g.cols, x_pad.contiguous(), c, kname)
+    with obs.device_span("apply.scatter", x_pad):
+        return _scatter_rows(z_pad, y, g)
 
 
 def tree_kernel_name(kernel: Callable) -> str:
@@ -277,21 +280,25 @@ def apply_in_tree_order(tree: ClusterTree, plan: HMatrixPlan, kernel: Callable, 
     with ``use_kernels`` (direct-difference entries, as the kernels compute
     them) and through ``core.aca`` without (the kernel function ``kernel``,
     as the P-mode build computes them).  A panel of one column sends the
-    dense leaves through the vector kernel.
+    dense leaves through the vector kernel.  Traced (``repro_torch.obs``),
+    the device spans ``apply.lowrank`` (Z's zeros and every level group),
+    ``apply.dense`` and ``apply.scatter`` bracket the three stages.
     """
-    x_pad = x_pad.contiguous()
-    z_pad = torch.zeros_like(x_pad)
-    for level in plan.aca_levels:
-        g = groups[level]
-        if factors is not None:
-            U, V = factors[level]
-        elif use_kernels:
-            from ..kernels.batched_aca.ops import batched_aca_level
-            U, V = batched_aca_level(points, g.rows, g.cols, level, kernel_name_of(kernel), k)
-        else:
-            U, V = batched_aca(_cluster_points(points, level, g.rows),
-                               _cluster_points(points, level, g.cols), kernel, k)
-        z_pad = _aca_level_apply(g, U, V, x_pad, z_pad, use_kernels)
+    with obs.device_span("apply.lowrank", x_pad):
+        x_pad = x_pad.contiguous()
+        z_pad = torch.zeros_like(x_pad)
+        for level in plan.aca_levels:
+            g = groups[level]
+            if factors is not None:
+                U, V = factors[level]
+            elif use_kernels:
+                from ..kernels.batched_aca.ops import batched_aca_level
+                U, V = batched_aca_level(points, g.rows, g.cols, level, kernel_name_of(kernel),
+                                         k)
+            else:
+                U, V = batched_aca(_cluster_points(points, level, g.rows),
+                                   _cluster_points(points, level, g.cols), kernel, k)
+            z_pad = _aca_level_apply(g, U, V, x_pad, z_pad, use_kernels)
     return _dense_apply_points(points, plan, kernel, groups["dense"], x_pad, z_pad,
                                use_kernels)
 
@@ -343,10 +350,12 @@ def make_apply(hm: HMatrix, use_kernels: bool = True, mesh=None,
     tree, plan = hm.tree, hm.plan
 
     def _apply(x2: torch.Tensor) -> torch.Tensor:
-        x_pad = permute_to_tree(tree, x2)
+        with obs.device_span("apply.permute_in", x2):
+            x_pad = permute_to_tree(tree, x2)
         z_pad = apply_in_tree_order(tree, plan, hm.kernel, hm.k, use_kernels,
                                     tree.points, hm.factors, hm.groups, x_pad)
-        return permute_from_tree(tree, z_pad)
+        with obs.device_span("apply.permute_out", x2):
+            return permute_from_tree(tree, z_pad)
 
     return panel_entry(hm, _apply)
 

@@ -60,7 +60,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from .._device import resolve_device, sync_debug_window, to_host
+from ..obs import Completion
 from ..parallel.hshard import pad_panel_width
 from .faults import (CircuitOpenError, FaultInjector, LaneResilience, NaNGuard, OverloadedError,
                      ResiliencePolicy, resolve_chaos)
@@ -147,11 +149,13 @@ def pack_rows(buf: np.ndarray, vectors, w: int) -> None:
     buf[len(vectors):w] = 0.0
 
 
-def upload_rows(rows, device) -> torch.Tensor:
+def upload_rows(rows, device: torch.device) -> torch.Tensor:
     """A host ``(w, n)`` block of request rows as the ``(n, w)`` device panel
-    a launch takes: one copy to the device, transposed there (a view)."""
+    a launch takes: one copy to the device (the ``runtime.upload`` span),
+    transposed there (a view)."""
     rows = torch.as_tensor(rows)
-    return rows.to(device, non_blocking=rows.is_pinned(), copy=True).t()
+    with obs.device_span("runtime.upload", device):
+        return rows.to(device, non_blocking=rows.is_pinned(), copy=True).t()
 
 
 def fetch_rows(out: torch.Tensor) -> np.ndarray:
@@ -198,30 +202,33 @@ class _PanelRecord:
 
     Holds the device result as ``(w, n)`` rows and the launch's
     :class:`Completion`; the first ``host()`` waits on it, copies the rows to the host
-    once and caches them for every other column.  With a
+    once (the ``runtime.fetch`` span of panel ``panel``) and caches them for
+    every other column.  With a
     :class:`~repro_torch.serve.faults.NaNGuard` attached the fetched rows are
     validated first (and on NaN/Inf relaunched once through the lane's
     launch); a guard failure is cached too, so every column re-raises the
     same error.
     """
 
-    __slots__ = ("_rows", "_done", "_host", "_lock", "_guard", "_exc")
+    __slots__ = ("_rows", "_done", "_host", "_lock", "_guard", "_exc", "_panel")
 
-    def __init__(self, rows: torch.Tensor, done: "Completion", guard=None):
+    def __init__(self, rows: torch.Tensor, done: Completion, guard=None, panel=None):
         self._rows = rows
         self._done = done
         self._host = None
         self._lock = threading.Lock()
         self._guard = guard
         self._exc = None
+        self._panel = panel
 
     def host(self) -> np.ndarray:
         with self._lock:
             if self._exc is not None:
                 raise self._exc
             if self._host is None:
-                self._done.synchronize()
-                out = rows_to_host(self._rows)
+                with obs.span("runtime.fetch", panel=self._panel):
+                    self._done.synchronize()
+                    out = rows_to_host(self._rows)
                 if self._guard is not None:
                     try:
                         out = self._guard.check(out)
@@ -242,14 +249,13 @@ class PanelFuture:
     ``(N,)`` row.
     """
 
-    __slots__ = ("_event", "_record", "_col", "_exc", "t_submit")
+    __slots__ = ("_event", "_record", "_col", "_exc")
 
     def __init__(self):
         self._event = threading.Event()
         self._record = None
         self._col = 0
         self._exc = None
-        self.t_submit = time.monotonic()
 
     def _resolve(self, record: _PanelRecord, col: int):
         self._record, self._col = record, col
@@ -268,42 +274,6 @@ class PanelFuture:
         if self._exc is not None:
             raise self._exc
         return self._record.host()[self._col]
-
-
-class Completion:
-    """When one launch's work is done, and how long it ran.
-
-    On CUDA two timing events bracket the launch on the lane's stream:
-    ``synchronize`` waits for the second, ``seconds`` is the device time
-    between them.  On the CPU a launch has finished when it returns, and
-    ``seconds`` is the call's host time.
-    """
-
-    __slots__ = ("_start", "_end", "_host_s")
-
-    def __init__(self, stream):
-        self._start = self._end = None
-        if stream is not None:
-            self._start = torch.cuda.Event(enable_timing=True)
-            self._end = torch.cuda.Event(enable_timing=True)
-            self._start.record(stream)
-        self._host_s = time.perf_counter()
-
-    def record(self, stream) -> None:
-        """Mark the end of the launch's work on ``stream``."""
-        if self._end is not None:
-            self._end.record(stream)
-        self._host_s = time.perf_counter() - self._host_s
-
-    def synchronize(self):
-        if self._end is not None:
-            self._end.synchronize()
-
-    def seconds(self) -> float:
-        """The launch's run time (call after ``synchronize``)."""
-        if self._end is None:
-            return self._host_s
-        return self._start.elapsed_time(self._end) / 1e3
 
 
 class LaunchPacer:
@@ -417,7 +387,7 @@ class PanelLane:
             queued.record(self.stream)
             queued.synchronize()
 
-    def launch_panel(self, chunk, pacer: LaunchPacer, on_retire=None):
+    def launch_panel(self, chunk, pacer: LaunchPacer, on_retire=None, panel=None):
         """Pack ``chunk`` into the current staging buffer, pad it to its width
         bucket, launch, and resolve the chunk's futures.
 
@@ -427,25 +397,33 @@ class PanelLane:
         launch raised; the owning runtime decides between failing and
         retrying, so the lane never fails futures itself.  The upload, the
         launch and the transpose run inside :func:`strict_transfers`.
+        ``panel`` is the panel's id in the tracer's spans (``obs.new_id()``).
         """
         w = width_for(len(chunk), self.widths)
         buf = self._staging[self._buf]
-        t0 = time.perf_counter()
-        pack_rows(self._staging_np[self._buf], [q for q, _, _ in chunk], w)
-        pack_s = time.perf_counter() - t0
-        t0 = time.monotonic()
-        try:
-            with _on_stream(self.stream), strict_transfers(self.device):
-                done = Completion(self.stream)
-                out = self._launch(upload_rows(buf[:w], self.device))
-                rows = out.t().contiguous()     # the fetch's layout, made on the device
-                done.record(self.stream)
-        except Exception as exc:
-            # the upload may still be reading the buffer, whose index stays
-            # put: wait for it before the buffer is packed again
-            self.synchronize()
-            return None, exc, time.monotonic() - t0, pack_s
-        dispatch_s = time.monotonic() - t0
+        with obs.span("runtime.panel", panel=panel, requests=len(chunk), width=w):
+            t0 = time.perf_counter()
+            with obs.span("runtime.pack"):
+                pack_rows(self._staging_np[self._buf], [item[0] for item in chunk], w)
+            pack_s = time.perf_counter() - t0
+            t0 = time.monotonic()
+            try:
+                with (obs.span("runtime.dispatch"), _on_stream(self.stream),
+                      strict_transfers(self.device)):
+                    done = Completion(self.stream)
+                    # the upload is the launch's argument only: the apply frees
+                    # it once it has its own layout of the panel
+                    out = self._launch(upload_rows(buf[:w], self.device))
+                    with obs.device_span("runtime.transpose", self.device):
+                        rows = out.t().contiguous()     # the fetch's layout, made on the device
+                    done.record(self.stream)
+                    obs.device_record("device.panel", done)
+            except Exception as exc:
+                # the upload may still be reading the buffer, whose index stays
+                # put: wait for it before the buffer is packed again
+                self.synchronize()
+                return None, exc, time.monotonic() - t0, pack_s
+            dispatch_s = time.monotonic() - t0
         guard = None
         if self._guard_outputs:
             # the buffer is repacked once the pacer retires this launch: keep
@@ -454,11 +432,11 @@ class PanelLane:
             saved = staging_buffer(w, self.n, self.device)
             saved.copy_(buf[:w])
             guard = NaNGuard(len(chunk), lambda: self.relaunch(saved), self._on_relaunch)
-        record = _PanelRecord(rows, done, guard)
+        record = _PanelRecord(rows, done, guard, panel)
         pacer.commit(done, on_retire)
         self._buf = (self._buf + 1) % len(self._staging)
-        for j, (_, fut, _) in enumerate(chunk):
-            fut._resolve(record, j)
+        for j, item in enumerate(chunk):
+            item[1]._resolve(record, j)
         return w, None, dispatch_s, pack_s
 
     def relaunch(self, rows: torch.Tensor) -> np.ndarray:
@@ -567,7 +545,8 @@ class PanelRuntime:
                              "breaker_state": ("disabled" if self._res is None
                                                else self._res.breaker_state()),
                              "events": deque(maxlen=256)})
-        self._pending: list = []        # [(np vector, PanelFuture, t_arrival)]
+        # [(np vector, PanelFuture, t_arrival, open runtime.queued span or None)]
+        self._pending: list = []
         self._flush_goal = 0            # launch until this many have launched
         self._launched = 0              # requests launched so far (FIFO count)
         self._submitted = 0
@@ -596,7 +575,8 @@ class PanelRuntime:
                 self._cv.wait()
                 self._check_open()
                 self._check_admission()
-            self._pending.append((q, fut, time.monotonic()))
+            queued = obs.queued(self._submitted)    # opened before the arrival stamp
+            self._pending.append((q, fut, time.monotonic(), queued))
             self._submitted += 1
             depth = len(self._pending)
             if depth > self.stats["max_queue_depth"]:
@@ -724,7 +704,7 @@ class PanelRuntime:
             self._event("retry", f"launch attempt failed ({exc!r}); panel of {len(chunk)} "
                                  f"re-queued with backoff")
             return
-        for _, fut, _ in chunk:
+        for _, fut, _, _ in chunk:
             fut._fail(exc)
         self.stats["panel_failures"] += 1
         self._sync_breaker_stat()
@@ -739,13 +719,16 @@ class PanelRuntime:
                 "circuit breaker opened after consecutive panel failures — queued request "
                 "failed fast; resubmit after the cooldown (half-open probe)")
             err.__cause__ = exc
-            for _, fut, _ in dropped:
+            for _, fut, _, _ in dropped:
                 fut._fail(err)
 
     def _scheduler(self):
+        # traced, the loop is tiled by runtime.slot_wait, runtime.idle (each
+        # wait for work, a deadline or a backoff) and the lane's runtime.panel
         while True:
             # pacing: retire the oldest in-flight panel BEFORE taking new work
-            self._pacer.wait_for_slot()
+            with obs.span("runtime.slot_wait"):
+                self._pacer.wait_for_slot()
             with self._cv:
                 while True:
                     if self._closing:
@@ -757,20 +740,25 @@ class PanelRuntime:
                     # sleep until the earliest of: retry-backoff expiry, the
                     # oldest request's deadline (None: until notified)
                     wakes = [t for t in (gate, self._next_deadline()) if t is not None]
-                    if wakes:
-                        wait = min(wakes) - time.monotonic()
-                        if wait > 0:
-                            self._cv.wait(wait)
-                    else:
-                        self._cv.wait()
+                    with obs.span("runtime.idle"):
+                        if wakes:
+                            wait = min(wakes) - time.monotonic()
+                            if wait > 0:
+                                self._cv.wait(wait)
+                        else:
+                            self._cv.wait()
                 chunk = self._pending[:self.max_batch]
                 del self._pending[:len(chunk)]
+                panel = obs.new_id()                # None while the tracer is off
+                if panel is not None:
+                    obs.end_queued([item[3] for item in chunk], panel)
                 self._launched += len(chunk)
                 self._in_launch = True
                 self._cv.notify_all()               # wake backpressured submits
             w, exc, dispatch_s, pack_s = None, None, 0.0, 0.0
             try:
-                w, exc, dispatch_s, pack_s = self._lane.launch_panel(chunk, self._pacer)
+                w, exc, dispatch_s, pack_s = self._lane.launch_panel(chunk, self._pacer,
+                                                                     panel=panel)
             except Exception as err:                # the lane itself failed (device error)
                 exc = err
             with self._cv:

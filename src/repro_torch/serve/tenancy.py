@@ -40,6 +40,7 @@ from typing import Callable
 
 import torch
 
+from .. import obs
 from ..core.factor_store import FactorStore
 from ..parallel.hshard import mesh_panel
 from .faults import (CircuitOpenError, FaultInjector, LaneResilience, OverloadedError,
@@ -717,7 +718,8 @@ class MultiTenantRuntime:
                     exc = self._reload_store(tenant)
                 if exc is None:
                     w, exc, dispatch_s, pack_s = tenant.lane.launch_panel(
-                        chunk, self._pacer, self._make_on_retire(tenant.name))
+                        chunk, self._pacer, self._make_on_retire(tenant.name),
+                        panel=obs.new_id())
             except Exception as err:                # the lane itself failed (device error)
                 exc = err
             with self._cv:

@@ -381,12 +381,15 @@ def _healthy_latencies(with_bad_neighbor, n_requests=40):
             bad = mtr.add_tenant("bad", _spec(8, 2, broken,
                                               resilience=_fail_fast_policy(threshold=3)))
             bad_futs = [bad.submit(np.zeros(8, np.float32)) for _ in range(8)]
-        futs = [good.submit(np.full(16, j, np.float32)) for j in range(n_requests)]
+        t_submit, futs = [], []
+        for j in range(n_requests):
+            t_submit.append(time.monotonic())
+            futs.append(good.submit(np.full(16, j, np.float32)))
         mtr.flush()
         lat = []
         for j, f in enumerate(futs):
             out = f.result(timeout=120)
-            lat.append(time.monotonic() - f.t_submit)
+            lat.append(time.monotonic() - t_submit[j])
             np.testing.assert_array_equal(out, np.full(16, 2.0 * j, np.float32))
         mtr.drain()                     # the last panel's stats are in
         stats = {"good": good.stats(), "global": mtr.stats(),
