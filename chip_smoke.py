@@ -29,7 +29,10 @@ Phases (any failure ends the run with a non-zero exit code):
      cluster size that fits and streamed, held to the same bits on the
      sampled blocks of every group of P and K; the dense-leaf product on all
      leaves of P and K through the level entry, which reads points and panel
-     in place, equal bit for bit to the gathered entry; the low-rank apply on
+     in place, equal bit for bit to the gathered entry, and at the
+     benchmark's widths R = 16, 32 and 64 (its wide route) on 64 blocks and
+     on all dense leaves of both benchmark configurations, the Gaussian 2-D (P)
+     and the Matern 3-D at N = 2^20; the low-rank apply on
      every level group of P and K through its level entry, which reads the
      panel in place and adds each row cluster's blocks into Z, equal bit for
      bit to the gathered entry followed by ``_scatter_rows``, with both
@@ -400,6 +403,20 @@ def bound_ms(bytes_moved: float, ops: float, peak_ops: float = PEAK_FP32) -> tup
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# operations of phi after the squared distance (one instruction each; the
+# Matern count is csrc/phi.cuh's small-argument branch, as the benchmark's
+# yardstick hbench/harness/work.py counts it)
+PHI_OPS = {"gaussian": 1, "matern": 42}
+
+
+def dense_work(b: int, c: int, d: int, r: int, kernel: str = "gaussian") -> tuple[float, float]:
+    """(bytes, operations) of #2 on b blocks of c x c on r columns: the
+    points and the panel slices read once and Y written once; per entry a
+    direct squared distance (3d - 1), phi and 2r for the multiply-adds."""
+    return (4.0 * (2 * b * c * d + 2 * b * c * r),
+            float(b) * c * c * ((3 * d - 1) + PHI_OPS[kernel] + 2 * r))
+
+
 # ---------------------------------------------------------------------------
 # problems
 # ---------------------------------------------------------------------------
@@ -479,7 +496,7 @@ def check_dense(hm_p, hm_k, rng, record):
     b, c, d = rows.shape
     ms = gpu_ms(lambda: batched_kernel_matmat_cuda(rows, cols, x, "gaussian"), 5)
     plain = gpu_ms(lambda: batched_kernel_matmat_ref(rows, cols, x, "gaussian"), 2)
-    bms, by = bound_ms(4.0 * (2 * b * c * d + 2 * b * c * 8), b * c * c * ((3 * d - 1) + 1 + 2 * 8))
+    bms, by = bound_ms(*dense_work(b, c, d, 8))
     # the kernel on all dense leaves of P (and of K) in one launch, as an
     # apply makes it, through the level entry (points and panel read in
     # place): the kernels' share of the apply's time (the rest is glue).
@@ -498,19 +515,95 @@ def check_dense(hm_p, hm_k, rng, record):
         nb = int(g.rows.shape[0])
         whole[name] = {
             "blocks": nb, "C": cl, "level_equals_gathered": same,
-            "bound_ms": bound_ms(4.0 * (2 * nb * cl * d + 2 * nb * cl * 8),
-                                 nb * cl * cl * ((3 * d - 1) + 1 + 2 * 8))[0],
+            "bound_ms": bound_ms(*dense_work(nb, cl, d, 8))[0],
             "level_ms": gpu_ms(lambda: batched_kernel_matmat_level_cuda(
                 hm.tree.points, g.rows, g.cols, x_pad, cl), 3),
             "gathered_ms": gpu_ms(lambda: batched_kernel_matmat_cuda(rows, cols, x_blk), 3)}
         del rows, cols, x_blk, y_level
+    wide = check_dense_wide(hm_p, rng)
     record["batched_kernel_matmat"] = {
         "checks": checks, "max_abs_err": max(ch["max_abs_err"] for ch in checks),
         "rel_err": max(ch["rel_err"] for ch in checks), "ms": ms, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "timed_shape": f"B={b} C={c} d={d} R=8 (blocks of problem P)",
         "whole_dense_group_ms": whole["P"]["level_ms"],
-        "whole_dense_group_blocks": whole["P"]["blocks"], "whole_dense_group": whole}
+        "whole_dense_group_blocks": whole["P"]["blocks"], "whole_dense_group": whole,
+        "wide": wide}
+
+
+def ptxas_resources(source: str, kernel: str) -> dict | None:
+    """Registers and spilled bytes of the kernel whose mangled name holds
+    ``kernel``, from ``nvcc -Xptxas -v``'s report of ``source`` (None when
+    this process did not build it)."""
+    import re
+    from repro_torch import _build
+    report = _build.BUILD_INFO.get("ptxas", {}).get(source)
+    if not report:
+        return None
+    lines = report.splitlines()
+    at = next((i for i, line in enumerate(lines) if "Compiling entry" in line and kernel in line),
+              None)
+    if at is None:
+        return None
+    out = {}
+    for line in lines[at + 1:at + 4]:
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            out["spill_store_bytes"], out["spill_load_bytes"] = map(int, m.groups())
+        if m := re.search(r"Used (\d+) registers", line):
+            out["registers"] = int(m.group(1))
+    return out
+
+
+def check_dense_wide(hm_p, rng) -> dict:
+    """#2 at the benchmark's widths R = 16, 32 and 64 (the kernel's wide
+    route, one instance each) on both benchmark configurations: the Gaussian
+    2-D (problem P) and the Matern 3-D at N = 2^20 (its tree and plan alone,
+    no factors).  On 64 of each one's dense blocks against the plain version
+    and timed, then on all of its dense leaves through the level entry, as an
+    apply of a panel of that width launches it."""
+    from repro_torch import _build
+    from repro_torch.core import build_hmatrix, halton
+    from repro_torch.kernels.batched_dense_matvec.kernel import (
+        batched_kernel_matmat_cuda, batched_kernel_matmat_level_cuda)
+    from repro_torch.kernels.batched_dense_matvec.ref import batched_kernel_matmat_ref
+    out = {}
+    hm_m = build_hmatrix(halton(1 << 20, 3, device="cuda"), "matern", k=16, c_leaf=2048,
+                         eta=1.5)
+    for name, hm in (("gauss2d", hm_p), ("matern3d", hm_m)):
+        kname = hm.kernel_name
+        rows, cols = dense_pairs(hm, 64, rng)
+        b, c, d = rows.shape
+        g, cl = hm.groups["dense"], hm.plan.c_leaf
+        nb = int(g.rows.shape[0])
+        kid = 0 if kname == "gaussian" else 1
+        for r in (16, 32, 64):
+            x = randn((b, c, r), rng)
+            wide_before = _build.LAUNCHES["batched_kernel_matmat_wide"]
+            y = batched_kernel_matmat_cuda(rows, cols, x, kname)
+            require(_build.LAUNCHES["batched_kernel_matmat_wide"] == wide_before + 1,
+                    f"batched_kernel_matmat {name} R={r}: the wide route was not taken")
+            y_ref = batched_kernel_matmat_ref(rows, cols, x, kname)
+            err = rel_err(y, y_ref)
+            require(err <= 1e-5, f"batched_kernel_matmat {name} R={r}: rel err {err}")
+            ms = gpu_ms(lambda: batched_kernel_matmat_cuda(rows, cols, x, kname), 5)
+            x_pad = randn((hm.plan.n_pad, r), rng)
+            level_ms = gpu_ms(lambda: batched_kernel_matmat_level_cuda(
+                hm.tree.points, g.rows, g.cols, x_pad, cl, kname), 2)
+            out[f"{name}.R{r}"] = {
+                "kernel": kname, "d": d, "R": r, "rel_err": err,
+                "max_abs_err": max_abs(y, y_ref), "ms": ms,
+                "resources": ptxas_resources(
+                    "dense_matmat", f"dense_matmat_kernel_wideILi{d}ELi{kid}ELi{r}E"),
+                "bound_ms": bound_ms(*dense_work(b, c, d, r, kname))[0],
+                "timed_shape": f"B={b} C={c} d={d} R={r}", "leaves": nb,
+                "all_leaves_ms": level_ms,
+                "all_leaves_bound_ms": bound_ms(*dense_work(nb, cl, d, r, kname))[0]}
+            del x, y, y_ref, x_pad
+            torch.cuda.empty_cache()
+        del rows, cols
+    del hm_m
+    torch.cuda.empty_cache()
+    return out
 
 
 def lowrank_bytes(b: int, m: int, k: int, r: int, level: bool, n_pad: int = 0) -> float:
@@ -4205,6 +4298,12 @@ def run_phases(args, record: dict, card: str, info: dict, sweep) -> int:
                 f"{w['C']}, R=8): level entry {w['level_ms']:.3f} ms, gathered entry "
                 f"{w['gathered_ms']:.3f} ms, bound {w['bound_ms']:.3f} ms (operations); equal "
                 f"bit for bit {w['level_equals_gathered']}")
+        for name, w in dense["wide"].items():
+            log(f"[1] batched_kernel_matmat at R={w['R']} (wide route), {name} ({w['kernel']}, "
+                f"d={w['d']}): {w['timed_shape']} {w['ms']:.3f} ms (bound {w['bound_ms']:.3f}, "
+                f"rel err {w['rel_err']:.2e}); all {w['leaves']} dense leaves "
+                f"{w['all_leaves_ms']:.3f} ms (bound {w['all_leaves_bound_ms']:.3f}); "
+                f"ptxas {w['resources']}")
         for name in ("batched_trsm_panels", "batched_schur_dense"):
             widths = record["kernels"][name]["widths"]
             log(f"[1] {name} dynamic shared memory by width: {widths['smem_bytes']}")
@@ -4407,6 +4506,12 @@ def run_phases(args, record: dict, card: str, info: dict, sweep) -> int:
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
             "library_ms": rec.get("library_ms")})
+        if "wide" in rec:
+            # the route every served panel wider than 8 columns takes
+            kernels_line[-1]["wide"] = {
+                shape: {k: w[k] for k in ("timed_shape", "ms", "bound_ms", "max_abs_err",
+                                          "all_leaves_ms", "all_leaves_bound_ms")}
+                for shape, w in rec["wide"].items()}
     print(json.dumps({"kernels": kernels_line}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -31,15 +31,17 @@ this checkout's ``stash``).
   P is timed whole, parent and this checkout in turns (parent, new, new,
   parent), with the picked route and the other route where it fits, and
   every group of P and K on each route and cluster size that fits;
-* #2, all dense leaves of P and of K at R = 8: the parent's gathered launch, this
+* #2, all dense leaves of P and of K at R = 8 and at R = 32 and 64 (the
+  kernel's wide route): the parent's gathered launch, this
   checkout's gathered launch and its level entry (reading the tree-ordered
   points and panel in place), timed in turns; the level entry must equal
   the gathered entry bit for bit and both must lie within 1e-5 (relative)
-  of the parent's; the SM clock is sampled (``nvidia-smi``) while P's
+  of the parent's (whether they equal it bit for bit is recorded); the SM
+  clock is sampled (``nvidia-smi``) while P's
   leaves are timed, and the SASS of this checkout's kernel
   (``cuobjdump -sass``) gives the instructions it issues per block entry:
   the length of its innermost loop over the MUFU.EX2 (one exp per entry)
-  in it;
+  in it (for the wide route, the phi loop's);
 * #8, parent and this checkout in turns, on P's 7 factor-store groups at
   tol 1e-2 (as the memory tier runs them), on one (2048, 256, 64) batch
   with half its blocks zero (H-LU's typical re-truncation) and on the wide
@@ -283,6 +285,14 @@ def _nvcc_dir() -> str:
 
 
 def compare_dense(parent, name, hm, rng, rec) -> bool:
+    ok = True
+    for r in (8, 32, 64):
+        ok &= compare_dense_at(parent, name, hm, rng, rec, r)
+        torch.cuda.empty_cache()
+    return ok
+
+
+def compare_dense_at(parent, name, hm, rng, rec, r: int) -> bool:
     from repro_torch.core.geometry import matern_norm
     from repro_torch.kernels import stream_handle
     from repro_torch.kernels.batched_dense_matvec.kernel import (
@@ -290,15 +300,15 @@ def compare_dense(parent, name, hm, rng, rec) -> bool:
     from repro_torch.kernels.phi import kernel_id
     c, g = hm.plan.c_leaf, hm.groups["dense"]
     d = hm.tree.points.shape[1]
-    x_pad = torch.from_numpy(rng.standard_normal((hm.plan.n_pad, 8)).astype(np.float32)).cuda()
+    x_pad = torch.from_numpy(rng.standard_normal((hm.plan.n_pad, r)).astype(np.float32)).cuda()
     leaf = hm.tree.points.reshape(-1, c, d)
     rows, cols = leaf[g.rows].contiguous(), leaf[g.cols].contiguous()
-    x_blk = x_pad.reshape(-1, c, 8)[g.cols].contiguous()
+    x_blk = x_pad.reshape(-1, c, r)[g.cols].contiguous()
     y_par = torch.empty_like(x_blk)
 
     def par():
         err = parent["dense"](rows.data_ptr(), cols.data_ptr(), x_blk.data_ptr(), y_par.data_ptr(),
-                              rows.shape[0], c, d, 8, kernel_id("gaussian"), matern_norm(d),
+                              rows.shape[0], c, d, r, kernel_id("gaussian"), matern_norm(d),
                               stream_handle(rows.device))
         assert err == 0, err
 
@@ -317,11 +327,13 @@ def compare_dense(parent, name, hm, rng, rec) -> bool:
     clock.terminate()
     clocks = [int(v) for v in clock.communicate()[0].split() if v.isdigit()]
     _, t_gath = in_turns(par, lambda: batched_kernel_matmat_cuda(rows, cols, x_blk))
-    rec[f"dense_{name}"] = {"blocks": int(rows.shape[0]), "C": c, "R": 8, "parent_ms": t_par,
-                      "level_ms": t_level, "gathered_ms": t_gath,
-                      "level_equals_gathered": same, "rel_err_vs_parent": rel,
-                      "sm_clock_mhz_samples": clocks}
-    print(f"[#2 {name}] {rec[f'dense_{name}']}", flush=True)
+    key = f"dense_{name}" if r == 8 else f"dense_{name}_R{r}"
+    rec[key] = {"blocks": int(rows.shape[0]), "C": c, "R": r, "parent_ms": t_par,
+                "level_ms": t_level, "gathered_ms": t_gath,
+                "level_equals_gathered": same, "rel_err_vs_parent": rel,
+                "equal_to_parent": bool(torch.equal(y_level, y_par)),
+                "sm_clock_mhz_samples": clocks}
+    print(f"[#2 {name} R={r}] {rec[key]}", flush=True)
     return same and rel <= 1e-5
 
 
@@ -961,7 +973,10 @@ def main() -> int:
     if "2" in picked:
         rec["dense_sass"] = sass_per_entry(Path(info["dir"]) / "libdense_matmat.so",
                                            "dense_matmat_kernelILi2ELi0ELi8E")
-        print(f"[#2 SASS] {rec['dense_sass']}", flush=True)
+        rec["dense_wide_sass"] = sass_per_entry(Path(info["dir"]) / "libdense_matmat.so",
+                                                "dense_matmat_kernel_wideILi2ELi0ELi64E")
+        print(f"[#2 SASS] {rec['dense_sass']}; wide route's phi loop {rec['dense_wide_sass']}",
+              flush=True)
     ok = True
     problems = (("P", 1 << 20, 1.0, 2048), ("K", 1 << 15, 32.0, 256))
     for name, n, scale, c_leaf in problems if picked & {"2", "3", "4", "5", "6", "7", "8"} else ():

@@ -7,8 +7,10 @@ of the checkout.  Nothing is built when a module is imported: the first
 kernel launch builds everything (or ``build_all()`` does, explicitly).
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds one
-where it launches its kernel and nowhere else.  ``ORACLE_CALLS`` counts the
-calls that take a documented plain route of the reference on the card.
+where it launches its kernel and nowhere else (``batched_kernel_matmat_wide``
+counts, besides, the dense launches that took the kernel's wide route).
+``ORACLE_CALLS`` counts the calls that take a documented plain route of the
+reference on the card.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ SOURCES = ("dense_matmat", "lowrank_matmat", "block_cholesky", "block_cholesky_s
 LAUNCHES: dict[str, int] = {
     "batched_kernel_matvec": 0,
     "batched_kernel_matmat": 0,
+    # of those, the launches on panels wider than 8 columns (the wide route)
+    "batched_kernel_matmat_wide": 0,
     "batched_aca": 0,
     "batched_lowrank_matmat": 0,
     "batched_block_cholesky": 0,

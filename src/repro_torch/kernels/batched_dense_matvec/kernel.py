@@ -7,7 +7,9 @@ and never stored.  Two entries each: the gathered one takes every block's
 points and panel slice, the level one (``*_level_cuda``) reads them by leaf
 id from the tree-ordered points and padded panel, as an apply holds them.
 Both run the same CUDA code (the gathered one with ids ``0..B-1``) and give
-the same bits.
+the same bits.  The kernel takes one of two routes by the panel's width
+alone (:func:`dense_route`): R <= 8 the narrow one, wider panels the wide
+one, which computes each entry's phi once for up to 64 columns.
 """
 from __future__ import annotations
 
@@ -25,6 +27,20 @@ _ARGTYPES_VEC = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ct
 _ARGTYPES_IDS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
                  + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 MAX_POINT_DIM = 3
+NARROW_MAX_R = 8   # the widest panel of csrc/dense_matmat.cu's narrow route
+
+
+def dense_route(r: int) -> str:
+    """The kernel's route for a panel of ``r`` columns: ``"narrow"`` (R <= 8,
+    phi computed once per 8-column slice) or ``"wide"`` (phi once per entry
+    for up to 64 columns)."""
+    return "narrow" if r <= NARROW_MAX_R else "wide"
+
+
+def _count_launch(what: str, r: int) -> None:
+    _build.LAUNCHES[what] += 1
+    if dense_route(r) == "wide":
+        _build.LAUNCHES["batched_kernel_matmat_wide"] += 1
 
 
 def _level_launch(what: str, points: torch.Tensor, row_ids: torch.Tensor,
@@ -56,7 +72,7 @@ def _level_launch(what: str, points: torch.Tensor, row_ids: torch.Tensor,
                  x_pad.data_ptr(), y.data_ptr(), b, c_leaf, d, r, n_leaf, n_leaf,
                  kernel_id(kernel_name), matern_norm(d), stream_handle(points.device))
     _build.check(err, what)
-    _build.LAUNCHES[what] += 1
+    _count_launch(what, r)
     return y
 
 
@@ -133,5 +149,5 @@ def batched_kernel_matmat_cuda(rows: torch.Tensor, cols: torch.Tensor, x: torch.
                  b, c, d, r, kernel_id(kernel_name), matern_norm(d),
                  stream_handle(x.device))
     _build.check(err, what)
-    _build.LAUNCHES[what] += 1
+    _count_launch(what, r)
     return y

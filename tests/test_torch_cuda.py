@@ -27,7 +27,8 @@ LM's prefill through the kernel against the same prefill through the plain
 version on the card within 1e-4 relative.
 The ACA's two routes (resident, at every cluster size that fits, and
 streamed) must give the same bits, the dense leaves' level entry the
-gathered entry's bits, and the low-rank level entry the bits of the
+gathered entry's bits, the dense product's wide route (R > 8) the bits of
+its narrow route's 8-column slices, and the low-rank level entry the bits of the
 gathered entry followed by ``_scatter_rows``.  With TF32 on, every entry point raises for CUDA
 operands.
 """
@@ -76,11 +77,17 @@ def _rel(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,r", [(96, 1), (256, 8), (200, 13)])
-def test_dense_matmat_kernel_matches_plain_on_card(cuda_device, c, r):
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("c", [96, 200, 256])
+@pytest.mark.parametrize("r", [1, 8, 13, 16, 27, 32, 64, 80])
+def test_dense_matmat_kernel_matches_plain_on_card(cuda_device, c, r, d):
+    """Both routes (R <= 8 narrow, wider panels wide) and each of the wide
+    route's instances (16, 32 and 64 columns; 13 and 27 ragged, without the
+    16-byte copies of X), with ragged row and column tiles (c = 200) and, at
+    R = 80, a ragged second column group."""
     g = torch.Generator(device="cpu").manual_seed(c + r)
-    rows = torch.rand(5, c, 2, generator=g).to(cuda_device)
-    cols = torch.rand(5, c, 2, generator=g).to(cuda_device) + 0.5
+    rows = torch.rand(5, c, d, generator=g).to(cuda_device)
+    cols = torch.rand(5, c, d, generator=g).to(cuda_device) + 0.5
     x = torch.randn(5, c, r, generator=g).to(cuda_device)
     for kernel in ("gaussian", "matern"):
         y = batched_kernel_matmat(rows, cols, x, kernel)
@@ -88,8 +95,31 @@ def test_dense_matmat_kernel_matches_plain_on_card(cuda_device, c, r):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r", [8, 13, 16, 27, 32, 64])
+def test_dense_wide_route_is_counted_and_repeats_the_narrow_bits_on_card(cuda_device, r):
+    """The wide route counts its launches, gives the same bits twice (no
+    atomics, a fixed order of sums), and the bits of the narrow route's
+    8-column slices (each column chains its sums in the same order)."""
+    from repro_torch.kernels.batched_dense_matvec.kernel import dense_route
+    g = torch.Generator(device="cpu").manual_seed(r)
+    rows = torch.rand(4, 2048, 3, generator=g).to(cuda_device)
+    cols = torch.rand(4, 2048, 3, generator=g).to(cuda_device) + 0.5
+    x = torch.randn(4, 2048, r, generator=g).to(cuda_device)
+    for kernel in ("gaussian", "matern"):
+        before = dict(_build.LAUNCHES)
+        y = batched_kernel_matmat(rows, cols, x, kernel)
+        assert _build.LAUNCHES["batched_kernel_matmat"] == before["batched_kernel_matmat"] + 1
+        assert (_build.LAUNCHES["batched_kernel_matmat_wide"]
+                == before["batched_kernel_matmat_wide"] + (dense_route(r) == "wide"))
+        assert torch.equal(y, batched_kernel_matmat(rows, cols, x, kernel))
+        slices = [batched_kernel_matmat(rows, cols, x[:, :, q:q + 8].contiguous(), kernel)
+                  for q in range(0, r, 8)]
+        assert torch.equal(y, torch.cat(slices, dim=2))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c", [96, 256, 2048])
-@pytest.mark.parametrize("r", [1, 8, 13])
+@pytest.mark.parametrize("r", [1, 8, 13, 32, 64])
 def test_dense_level_entry_equals_the_gathered_entry_on_card(cuda_device, c, r):
     from repro_torch.kernels.batched_dense_matvec.ops import (batched_kernel_matmat_level,
                                                               batched_kernel_matvec_level)

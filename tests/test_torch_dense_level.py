@@ -12,7 +12,9 @@ version, so:
   it replaced (the same plain product on the same gathered operands).
 
 On the card the level entry and the gathered entry run the same CUDA code
-(``tests/test_torch_cuda.py``).
+(``tests/test_torch_cuda.py``).  The kernel's route is a function of the
+panel's width alone (``dense_route``): narrow up to 8 columns, wide above,
+and a launch adds to the wide route's count exactly when it takes it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,9 +23,11 @@ import torch
 
 from repro.kernels.batched_dense_matvec.kernel import (batched_kernel_matmat_t,
                                                        batched_kernel_matvec_t)
+from repro_torch import _build
 from repro_torch.core import build_hmatrix
 from repro_torch.core.clustering import permute_to_tree
 from repro_torch.core.hmatrix import _dense_apply_points, _scatter_rows
+from repro_torch.kernels.batched_dense_matvec import kernel as dense_kernel
 from repro_torch.kernels.batched_dense_matvec.ops import (batched_kernel_matmat,
                                                           batched_kernel_matmat_level,
                                                           batched_kernel_matvec,
@@ -118,3 +122,18 @@ def test_dense_apply_points_equals_the_gathered_route(kernel, r):
         got = _dense_apply_points(hm.tree.points, hm.plan, hm.kernel, hm.groups["dense"], x_pad,
                                   torch.zeros_like(x_pad), use_kernels)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("r,route", [(1, "narrow"), (8, "narrow"), (9, "wide"), (16, "wide"),
+                                     (64, "wide"), (65, "wide")])
+def test_dense_route_splits_at_eight_columns(r, route):
+    assert dense_kernel.dense_route(r) == route
+
+
+@pytest.mark.parametrize("r", [1, 8, 9, 13, 16, 27, 32, 64, 80])
+def test_dense_launch_counts_the_wide_route(r, monkeypatch):
+    monkeypatch.setitem(_build.LAUNCHES, "batched_kernel_matmat", 0)
+    monkeypatch.setitem(_build.LAUNCHES, "batched_kernel_matmat_wide", 0)
+    dense_kernel._count_launch("batched_kernel_matmat", r)
+    assert _build.LAUNCHES["batched_kernel_matmat"] == 1
+    assert _build.LAUNCHES["batched_kernel_matmat_wide"] == (r > 8)
