@@ -60,14 +60,32 @@ def slot_wait_share(run: dict):
 
 
 def device_ms(name: str):
-    """The reader of the mean device ms of ``name``'s spans (one a panel)."""
+    """The reader of the device ms of ``name``'s spans a panel: summed over
+    each panel's spans (a batched stage has one a batch), the mean over
+    the panels."""
     def read(run: dict):
         spans = _spans(run, name)
-        return float(np.mean([s["device_ms"] for s in spans])) if spans else None
+        if not spans:
+            return None
+        panels: dict = {}
+        for s in spans:
+            panels[s["panel"]] = panels.get(s["panel"], 0.0) + s["device_ms"]
+        return float(np.mean(list(panels.values())))
     return read
 
 
 scatter_ms = device_ms("apply.scatter")
+aca_ms = device_ms("apply.aca")
+
+
+def batches(name: str):
+    """The reader of the batches an apply ran a stage in: the ``batches``
+    of ``name``'s spans (``apply.lowrank``, ``apply.dense``), the largest."""
+    def read(run: dict):
+        spans = _spans(run, name)
+        counts = [s["batches"] for s in spans or () if s.get("batches") is not None]
+        return max(counts) if counts else None
+    return read
 
 
 def stage_gap(run: dict):
@@ -85,7 +103,8 @@ def stage_gap(run: dict):
 
 
 READINGS = {"queue_wait_ms": queue_wait_ms, "slot_wait_share": slot_wait_share,
-            "scatter_ms": scatter_ms, "stage_gap_pct": stage_gap,
+            "scatter_ms": scatter_ms, "stage_gap_pct": stage_gap, "aca_ms": aca_ms,
+            "lowrank_batches": batches("apply.lowrank"), "dense_batches": batches("apply.dense"),
             "device_panel_ms": device_ms("device.panel"),
             **{f"{name}_ms": device_ms(name) for name in STAGES if name != "apply.scatter"}}
 

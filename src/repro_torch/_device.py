@@ -80,6 +80,18 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
+def release_pinned_host_memory() -> None:
+    """Give back to the system the pinned host blocks that PyTorch's caching
+    host allocator keeps unused (a panel's staging rows and fetched results
+    are pinned; freed, they stay cached and page-locked).  Blocks in use are
+    untouched.  ``torch.accelerator.empty_host_cache`` where the release has
+    it, ``torch._C._host_emptyCache`` in older ones; nothing without either."""
+    empty = (getattr(getattr(torch, "accelerator", None), "empty_host_cache", None)
+             or getattr(torch._C, "_host_emptyCache", None))
+    if empty is not None and torch.cuda.is_available():
+        empty()
+
+
 # the strict windows open across threads: PyTorch's sync-debug mode is one
 # process-wide setting, so the first window to open sets it and the last to
 # close restores what was there before

@@ -68,7 +68,7 @@ def hmatrix_from_arrays(arrays: dict[str, np.ndarray], *, device) -> HMatrix:
     kernel_name = str(arrays["kernel_name"])
     return HMatrix(tree=tree, plan=plan, kernel=get_kernel(kernel_name),
                    kernel_name=kernel_name, k=int(arrays["k"]), factors=factors,
-                   groups=block_groups(plan, dev))
+                   groups=block_groups(plan, dev, int(arrays["k"])))
 
 
 def _norm(tree: dict, t) -> Norm:

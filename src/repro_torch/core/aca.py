@@ -19,6 +19,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..kernels import bmm
+
 
 def _masked_argmax(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Row-wise argmax of |x| over positions where mask (1.0 = available);
@@ -49,7 +51,7 @@ def batched_aca(row_pts: torch.Tensor, col_pts: torch.Tensor,
     for r in range(k):
         # residual column j_r:  A[:, j_r] - U @ V[j_r]
         a_col = kernel(row_pts, col_pts[ar, j_r][:, None, :])[:, :, 0]
-        u_hat = a_col - torch.bmm(U, V[ar, j_r][:, :, None])[:, :, 0]
+        u_hat = a_col - bmm(U, V[ar, j_r][:, :, None])[:, :, 0]
         i_r = _masked_argmax(u_hat, row_mask)
         alpha = u_hat[ar, i_r]
         safe = alpha.abs() > 1e-30
@@ -58,7 +60,7 @@ def batched_aca(row_pts: torch.Tensor, col_pts: torch.Tensor,
         u_r = u_hat * inv[:, None]
         # residual row i_r:  A[i_r, :] - V @ U[i_r]
         a_row = kernel(row_pts[ar, i_r][:, None, :], col_pts)[:, 0, :]
-        v_r = a_row - torch.bmm(V, U[ar, i_r][:, :, None])[:, :, 0]
+        v_r = a_row - bmm(V, U[ar, i_r][:, :, None])[:, :, 0]
         v_r = torch.where(safe[:, None], v_r, torch.zeros_like(v_r))
         u_r = torch.where(safe[:, None], u_r, torch.zeros_like(u_r))
         U[:, :, r] = u_r

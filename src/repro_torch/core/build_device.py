@@ -323,7 +323,7 @@ def build_hmatrix_device_report(
     plan = _assemble_plan(meta.cpu().numpy(), counts, c_leaf, n_pad, n_levels, eta)
     tree = ClusterTree(points=spts, perm=perm, n=n, n_pad=n_pad, c_leaf=c_leaf,
                        n_levels=n_levels, bb_min=bb_min, bb_max=bb_max)
-    groups = block_groups(plan, dev)
+    groups = block_groups(plan, dev, k)
     _sync(dev)
     t1 = time.perf_counter()
 

@@ -19,10 +19,16 @@ segment sum: a row cluster appears in several blocks of one group, and the
 order of those additions is fixed at build time (``BlockGroup``), so two
 applies on the card are bit-identical.  The dense leaves go through
 ``_scatter_rows``; the low-rank kernel sums in the same order itself.
+
+Each stage (the dense leaves, each admissible level group) runs in batches
+of whole row clusters whose working set stays under ``APPLY_BATCH_BYTES``,
+planned at build time (``BlockGroup.batches``).  A row cluster's blocks
+stay in one batch and in their order, so a batched apply gives the bits of
+a one-batch apply.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable
 
 import numpy as np
@@ -35,6 +41,24 @@ from .block_tree import HMatrixPlan, build_block_tree
 from .clustering import ClusterTree, build_cluster_tree, permute_from_tree, permute_to_tree
 from .factor_store import FactorStore, recompress_store
 from .geometry import get_kernel, kernel_name_of
+
+
+APPLY_BATCH_BYTES = 48 << 30
+"""Device bytes one batch of an apply stage may hold.
+
+The paper batches the apply's linear algebra so that a batch's arrays fit
+on the card beside the H-matrix (§6.5: at most ``bs_dense`` = 2^27 dense
+and ``bs_aca`` = 2^25 ACA entries a batch).  Here a batch is a run of whole
+row clusters of one stage, the dense leaves or one admissible level group,
+and its working set is :func:`batch_bytes` at 64 columns.  Sized for the
+H100's 80 GB (79.6 GiB): above the largest stage of the paper's problems at
+N = 2^20 (the Matern 3-D dense leaves, 44.9 GiB), so those run every stage
+in one launch, and about 31 GiB below the card for what an apply holds
+beside a batch at N = 2^24 (points, index tables and the panels in flight,
+4 GiB a 64-column panel buffer).
+"""
+PLANNED_COLUMNS = 64      # the panel width batches are sized for: the servers' widest panel
+LOWRANK_ROWS_A_SPLIT = 2048   # rows of V a V^T X CTA sums (csrc/lowrank_matmat.cu: CHUNK)
 
 
 @dataclass(frozen=True)
@@ -50,6 +74,10 @@ class BlockGroup:
                  (U + 1,) and (B,).
     longest_first: (U,) the distinct rows by decreasing block count (the
                  low-rank kernel's launch order, so the longest start first).
+    members:     in a batch, (B,) its blocks' indices in the whole group
+                 (their stored factors), ascending; None in a whole group.
+    batches:     the group's batches of whole row clusters, taken by
+                 decreasing block count; empty when the group is one batch.
     """
 
     rows: torch.Tensor
@@ -59,9 +87,20 @@ class BlockGroup:
     offsets: torch.Tensor
     blocks: torch.Tensor
     longest_first: torch.Tensor
+    members: torch.Tensor | None = None
+    batches: tuple = ()
+
+    @property
+    def size(self) -> int:
+        """Blocks in the group (host-side, from the shape)."""
+        return int(self.rows.shape[0])
+
+    def parts(self) -> tuple:
+        """The batches an apply runs, in order: ``batches``, or the group."""
+        return self.batches or (self,)
 
 
-def block_group(blocks: np.ndarray, device) -> BlockGroup:
+def block_group(blocks: np.ndarray, device, members: np.ndarray | None = None) -> BlockGroup:
     """Host-side row -> blocks lists of one (B, 2) block array, in stable order."""
     rows = np.asarray(blocks[:, 0], np.int64)
     n_blocks = rows.shape[0]
@@ -82,11 +121,76 @@ def block_group(blocks: np.ndarray, device) -> BlockGroup:
                       table=torch.from_numpy(table).to(dev),
                       offsets=torch.from_numpy(offsets).to(dev),
                       blocks=torch.from_numpy(order.astype(np.int64)).to(dev),
-                      longest_first=torch.from_numpy(longest_first).to(dev))
+                      longest_first=torch.from_numpy(longest_first).to(dev),
+                      members=None if members is None
+                      else torch.from_numpy(np.asarray(members, np.int64)).to(dev))
 
 
-def block_groups(plan: HMatrixPlan, device) -> dict:
-    """``BlockGroup`` per ACA level (int keys) and for the dense leaves ("dense").
+def batch_bytes(size: int, blocks: int, rows: int, k: int | None) -> int:
+    """Device bytes a batch of ``blocks`` blocks of ``size`` x ``size`` over
+    ``rows`` distinct row clusters holds on a ``PLANNED_COLUMNS``-wide panel.
+
+    Dense leaves (``k`` None): #2's results and ``_scatter_rows``' copy of
+    them (2 per block), its cluster sums and their temporaries (4 per row
+    cluster), each ``size`` x 64 floats.  A level group (rank ``k``): U and V
+    (2 size k floats a block, regenerated in NP mode, gathered in P mode),
+    the ACA's streamed scratch (k (2 size + 1)) and #4's partials (k x 64 per
+    split of ``LOWRANK_ROWS_A_SPLIT`` rows, and one).
+    """
+    w = PLANNED_COLUMNS
+    if k is None:
+        return 4 * size * w * (2 * blocks + 4 * rows)
+    splits = -(-size // LOWRANK_ROWS_A_SPLIT)
+    return 4 * blocks * k * (2 * size + (2 * size + 1) + w * (1 + splits))
+
+
+def _row_runs(cost: np.ndarray, counts: np.ndarray, budget: int, max_blocks: int) -> list:
+    """Runs ``(u0, u1)`` of a sequence of row clusters (``cost`` bytes and
+    ``counts`` blocks each) into the fewest runs of about equal cost under
+    ``budget`` bytes and ``max_blocks`` blocks.  A row cluster is never
+    split: one over the budget is a run alone."""
+    n_rows = cost.shape[0]
+    cum = np.concatenate([[0], np.cumsum(cost)])
+    cum_blocks = np.concatenate([[0], np.cumsum(counts)])
+    n = max(1, -(-int(cum[-1]) // budget), -(-int(cum_blocks[-1]) // max_blocks))
+    while n < n_rows:
+        cuts = np.searchsorted(cum[1:], cum[-1] * np.arange(1, n) / n) + 1
+        bounds = np.unique(np.concatenate([[0], cuts, [n_rows]]))
+        runs = list(zip(bounds[:-1].tolist(), bounds[1:].tolist()))
+        if all(cum[u1] - cum[u0] <= budget and cum_blocks[u1] - cum_blocks[u0] <= max_blocks
+               for u0, u1 in runs):
+            return runs
+        n += 1
+    return [(u, u + 1) for u in range(n_rows)]
+
+
+def batched_group(blocks: np.ndarray, device, size: int, k: int | None) -> BlockGroup:
+    """``block_group`` of ``blocks`` with its batches: at most
+    ``APPLY_BATCH_BYTES`` (``batch_bytes``: ``k`` None for the dense leaves,
+    the ACA rank for a level group) and the kernels' ``MAX_BATCH`` blocks."""
+    from ..kernels.batched_aca.kernel import MAX_BATCH
+    g = block_group(blocks, device)
+    rows = np.asarray(blocks[:, 0], np.int64)
+    if rows.size == 0:
+        return g
+    out_rows, counts = np.unique(rows, return_counts=True)
+    # row clusters by decreasing block count: the scatter's table is as wide
+    # as a batch's longest row cluster, so clusters of like length share one
+    order = np.argsort(-counts, kind="stable")
+    runs = _row_runs(batch_bytes(size, counts[order], 1, k), counts[order], APPLY_BATCH_BYTES,
+                     MAX_BATCH)
+    if len(runs) == 1:
+        return g
+    parts = []
+    for u0, u1 in runs:
+        members = np.nonzero(np.isin(rows, out_rows[order[u0:u1]]))[0]
+        parts.append(block_group(blocks[members], device, members=members))
+    return replace(g, batches=tuple(parts))
+
+
+def block_groups(plan: HMatrixPlan, device, k: int) -> dict:
+    """``BlockGroup`` per ACA level (int keys) and for the dense leaves
+    ("dense"), each with its batches for rank-``k`` factors.
 
     Every cluster id is checked against its level here, once: the ACA
     kernel reads clusters by id and reports a bad one only as NaN factors.
@@ -94,8 +198,9 @@ def block_groups(plan: HMatrixPlan, device) -> dict:
     for lv, blocks in list(plan.aca_levels.items()) + [(plan.n_levels, plan.dense_blocks)]:
         if blocks.size and (blocks.min() < 0 or blocks.max() >= 1 << lv):
             raise ValueError(f"plan: cluster ids of level {lv} outside [0, 2^{lv})")
-    groups = {lv: block_group(b, device) for lv, b in plan.aca_levels.items()}
-    groups["dense"] = block_group(plan.dense_blocks, device)
+    groups = {lv: batched_group(b, device, plan.n_pad >> lv, k)
+              for lv, b in plan.aca_levels.items()}
+    groups["dense"] = batched_group(plan.dense_blocks, device, plan.c_leaf, None)
     return groups
 
 
@@ -164,7 +269,7 @@ def build_hmatrix(coords, kernel: str | Callable = "gaussian", k: int = 16,
     kfn = get_kernel(kname)
     tree = build_cluster_tree(as_f32(coords, dev), c_leaf=c_leaf)
     plan = build_block_tree(tree, eta=eta)
-    groups = block_groups(plan, dev)
+    groups = block_groups(plan, dev, k)
     factors = None
     if precompute:
         factors = FactorStore.from_factors(compute_factors(tree, plan, kfn, k, groups),
@@ -237,10 +342,11 @@ def _aca_level_apply(g: BlockGroup, U, V, x_pad: torch.Tensor, z_pad: torch.Tens
 def _dense_apply_points(points: torch.Tensor, plan: HMatrixPlan, kernel: Callable,
                         g: BlockGroup, x_pad: torch.Tensor, z_pad: torch.Tensor,
                         use_kernels: bool):
-    """The dense leaves: their points and panel slices are read by leaf id
-    from ``points`` and ``x_pad`` (the kernel reads them in place; the plain
-    versions gather them and store the (B, c, c) blocks)."""
-    if g.rows.shape[0] == 0:
+    """The dense leaves, a batch at a time: their points and panel slices
+    are read by leaf id from ``points`` and ``x_pad`` (the kernel reads them
+    in place; the plain versions gather them and store the (B, c, c)
+    blocks), and each batch's results are added into Z before the next."""
+    if g.size == 0:
         return z_pad
     c = plan.c_leaf
     kname = kernel_name_of(kernel)
@@ -250,13 +356,34 @@ def _dense_apply_points(points: torch.Tensor, plan: HMatrixPlan, kernel: Callabl
     else:
         from ..kernels.batched_dense_matvec.ref import (
             batched_kernel_matmat_level_ref as matmat, batched_kernel_matvec_level_ref as matvec)
-    with obs.device_span("apply.dense", x_pad):
-        if x_pad.shape[1] == 1:
-            y = matvec(points, g.rows, g.cols, x_pad[:, 0], c, kname)[:, :, None]
-        else:
-            y = matmat(points, g.rows, g.cols, x_pad.contiguous(), c, kname)
-    with obs.device_span("apply.scatter", x_pad):
-        return _scatter_rows(z_pad, y, g)
+    parts = g.parts()
+    for part in parts:
+        with obs.device_span("apply.dense", x_pad, blocks=part.size, batches=len(parts)):
+            if x_pad.shape[1] == 1:
+                y = matvec(points, part.rows, part.cols, x_pad[:, 0], c, kname)[:, :, None]
+            else:
+                y = matmat(points, part.rows, part.cols, x_pad.contiguous(), c, kname)
+        with obs.device_span("apply.scatter", x_pad, blocks=part.size):
+            z_pad = _scatter_rows(z_pad, y, part)
+        del y       # freed before the next batch's results are made
+    return z_pad
+
+
+def _batch_factors(points: torch.Tensor, level: int, part: BlockGroup, kernel: Callable,
+                   k: int, factors, use_kernels: bool):
+    """``(U, V)`` of one batch of a level group: the stored factors (P mode;
+    a batch of a group gathers its own), else regenerated by the batched
+    ACA (NP mode; the ``apply.aca`` span)."""
+    if factors is not None:
+        U, V = factors[level]
+        return (U, V) if part.members is None else (U[part.members], V[part.members])
+    with obs.device_span("apply.aca", points, blocks=part.size):
+        if use_kernels:
+            from ..kernels.batched_aca.ops import batched_aca_level
+            return batched_aca_level(points, part.rows, part.cols, level, kernel_name_of(kernel),
+                                     k)
+        return batched_aca(_cluster_points(points, level, part.rows),
+                           _cluster_points(points, level, part.cols), kernel, k)
 
 
 def tree_kernel_name(kernel: Callable) -> str:
@@ -276,29 +403,27 @@ def apply_in_tree_order(tree: ClusterTree, plan: HMatrixPlan, kernel: Callable, 
 
     Shared by :func:`make_apply` (which adds the permutations) and the PCG
     loop of ``repro_torch.solve``.  ``factors`` None is NP mode: every apply
-    recomputes each level group's factors, through the batched ACA kernel
-    with ``use_kernels`` (direct-difference entries, as the kernels compute
-    them) and through ``core.aca`` without (the kernel function ``kernel``,
-    as the P-mode build computes them).  A panel of one column sends the
-    dense leaves through the vector kernel.  Traced (``repro_torch.obs``),
-    the device spans ``apply.lowrank`` (Z's zeros and every level group),
-    ``apply.dense`` and ``apply.scatter`` bracket the three stages.
+    recomputes each level group's factors, a batch at a time, through the
+    batched ACA kernel with ``use_kernels`` (direct-difference entries, as
+    the kernels compute them) and through ``core.aca`` without (the kernel
+    function ``kernel``, as the P-mode build computes them).  A panel of one
+    column sends the dense leaves through the vector kernel.  Every stage
+    runs in the batches its ``BlockGroup`` holds.  Traced
+    (``repro_torch.obs``), the device spans ``apply.lowrank`` (Z's zeros and
+    every level group; ``batches`` its batches), ``apply.dense`` and
+    ``apply.scatter`` (one each a dense batch; ``blocks``, and ``batches`` on
+    ``apply.dense``) bracket the stages, and ``apply.aca`` each batch's
+    regeneration in NP mode.
     """
-    with obs.device_span("apply.lowrank", x_pad):
+    levels = [(level, groups[level].parts()) for level in plan.aca_levels]
+    with obs.device_span("apply.lowrank", x_pad, batches=sum(len(p) for _, p in levels)):
         x_pad = x_pad.contiguous()
         z_pad = torch.zeros_like(x_pad)
-        for level in plan.aca_levels:
-            g = groups[level]
-            if factors is not None:
-                U, V = factors[level]
-            elif use_kernels:
-                from ..kernels.batched_aca.ops import batched_aca_level
-                U, V = batched_aca_level(points, g.rows, g.cols, level, kernel_name_of(kernel),
-                                         k)
-            else:
-                U, V = batched_aca(_cluster_points(points, level, g.rows),
-                                   _cluster_points(points, level, g.cols), kernel, k)
-            z_pad = _aca_level_apply(g, U, V, x_pad, z_pad, use_kernels)
+        for level, parts in levels:
+            for part in parts:
+                U, V = _batch_factors(points, level, part, kernel, k, factors, use_kernels)
+                z_pad = _aca_level_apply(part, U, V, x_pad, z_pad, use_kernels)
+                del U, V    # freed before the next batch's factors are made
     return _dense_apply_points(points, plan, kernel, groups["dense"], x_pad, z_pad,
                                use_kernels)
 

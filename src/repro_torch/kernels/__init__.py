@@ -12,6 +12,17 @@ import functools
 import torch
 
 
+def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` whose bits for each matrix do not depend on how many
+    the batch holds, so that an apply in batches repeats a one-batch apply.
+    On the CPU a batch of one lone column takes another route (a
+    matrix-vector product, summed in another order); it runs here as a
+    batch of two views of itself."""
+    if a.shape[0] == 1 and b.shape[-1] == 1:
+        return torch.bmm(a.expand(2, -1, -1), b.expand(2, -1, -1))[:1]
+    return torch.bmm(a, b)
+
+
 def on_cpu(what: str, *tensors: torch.Tensor) -> bool:
     """True if every operand lies on the CPU (plain version), False if they
     share another device (the CUDA wrapper then launches or raises);

@@ -11,6 +11,7 @@ from functools import partial
 import torch
 
 from ...core.aca import batched_aca
+from .. import bmm
 from ..phi import phi_matrix
 
 
@@ -31,8 +32,7 @@ def batched_aca_level_ref(points: torch.Tensor, row_ids: torch.Tensor, col_ids: 
 def batched_lowrank_matmat_ref(u: torch.Tensor, v: torch.Tensor,
                                x: torch.Tensor) -> torch.Tensor:
     """u: (B, m, k), v: (B, n, k), x: (B, n, R) -> U (V^T X): (B, m, R)."""
-    t = torch.bmm(v.transpose(1, 2), x)
-    return torch.bmm(u, t)
+    return bmm(u, bmm(v.transpose(1, 2), x))
 
 
 def batched_lowrank_matmat_level_ref(u: torch.Tensor, v: torch.Tensor, x_pad: torch.Tensor,

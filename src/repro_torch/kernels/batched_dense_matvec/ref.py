@@ -7,19 +7,20 @@ from __future__ import annotations
 
 import torch
 
+from .. import bmm
 from ..phi import phi_matrix
 
 
 def batched_kernel_matvec_ref(rows: torch.Tensor, cols: torch.Tensor,
                               x: torch.Tensor, kernel_name: str = "gaussian") -> torch.Tensor:
     """rows, cols: (B, C, d); x: (B, C) -> (B, C)."""
-    return torch.bmm(phi_matrix(rows, cols, kernel_name), x[:, :, None])[:, :, 0]
+    return bmm(phi_matrix(rows, cols, kernel_name), x[:, :, None])[:, :, 0]
 
 
 def batched_kernel_matmat_ref(rows: torch.Tensor, cols: torch.Tensor,
                               x: torch.Tensor, kernel_name: str = "gaussian") -> torch.Tensor:
     """rows, cols: (B, C, d); x: (B, C, R) -> (B, C, R)."""
-    return torch.bmm(phi_matrix(rows, cols, kernel_name), x)
+    return bmm(phi_matrix(rows, cols, kernel_name), x)
 
 
 def _leaf_points(points: torch.Tensor, ids: torch.Tensor, c_leaf: int) -> torch.Tensor:

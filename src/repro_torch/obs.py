@@ -16,6 +16,8 @@ CUDA stream with a :class:`Completion` (two timing events); on the CPU it
 takes the block's host time.  The events are read by :func:`collect`, the
 one place that waits on them, off the launch path.
 
+Host spans opened with one :class:`Tiles` share their boundaries, each
+beginning where the last ended, so that a loop's spans cover it whole.
 Each span's parent is the host span open on the same thread when it began,
 and it inherits that span's ``panel`` id.  ``runtime.queued`` spans begin
 on the submitting thread and end on the scheduler's (:func:`queued`,
@@ -48,7 +50,7 @@ _ids = itertools.count(1)
 _stacks: dict = {}              # thread ident -> its open host spans, innermost last
 
 FIELDS = ("name", "kind", "id", "parent", "thread", "t0_ns", "t1_ns", "panel", "request",
-          "requests", "width")
+          "requests", "width", "blocks", "batches")
 
 
 class Completion:
@@ -165,11 +167,25 @@ def new_id():
     return next(_ids) if _on else None
 
 
-class _HostSpan:
-    __slots__ = ("name", "panel", "requests", "width", "id", "parent", "t0")
+class Tiles:
+    """Successive host spans of one loop that leave none of it uncovered:
+    a span opened with ``tiles=`` begins at the instant the last one of the
+    same ``Tiles`` ended (read once, so the two share it), or at its own
+    start when there is no such span since :func:`enable`.  What runs
+    between two of them (taking a lock, bookkeeping) counts in the later."""
 
-    def __init__(self, name, panel, requests, width):
+    __slots__ = ("t",)
+
+    def __init__(self):
+        self.t = 0
+
+
+class _HostSpan:
+    __slots__ = ("name", "panel", "requests", "width", "tiles", "id", "parent", "t0")
+
+    def __init__(self, name, panel, requests, width, tiles):
         self.name, self.panel, self.requests, self.width = name, panel, requests, width
+        self.tiles = tiles
 
     def __enter__(self):
         self.id = next(_ids)
@@ -177,32 +193,37 @@ class _HostSpan:
         if self.panel is None:
             self.panel = panel
         self.t0 = _clock()
+        if self.tiles is not None and _since <= self.tiles.t <= self.t0:
+            self.t0 = self.tiles.t
         _stack().append(self)
         return self
 
     def __exit__(self, *exc):
         t1 = _clock()
+        if self.tiles is not None:
+            self.tiles.t = t1
         _stack().pop()
         _append(self.record(threading.get_ident(), t1))
         return False
 
     def record(self, thread: int, t1: int) -> tuple:
         return (self.name, "host", self.id, self.parent, thread, self.t0, t1, self.panel, None,
-                self.requests, self.width, None)
+                self.requests, self.width, None, None, None)
 
 
-def span(name: str, panel=None, requests=None, width=None):
-    """A host span over a ``with`` block; ``panel`` defaults to the parent's."""
+def span(name: str, panel=None, requests=None, width=None, tiles: Tiles | None = None):
+    """A host span over a ``with`` block; ``panel`` defaults to the parent's;
+    with ``tiles`` it begins where the last span of ``tiles`` ended."""
     if not _on:
         return NULL
-    return _HostSpan(name, panel, requests, width)
+    return _HostSpan(name, panel, requests, width, tiles)
 
 
 class _DeviceSpan:
-    __slots__ = ("name", "stream", "done", "parent", "panel", "t0")
+    __slots__ = ("name", "stream", "blocks", "batches", "done", "parent", "panel", "t0")
 
-    def __init__(self, name, stream):
-        self.name, self.stream = name, stream
+    def __init__(self, name, stream, blocks, batches):
+        self.name, self.stream, self.blocks, self.batches = name, stream, blocks, batches
 
     def __enter__(self):
         self.parent, self.panel = _parent()
@@ -213,19 +234,21 @@ class _DeviceSpan:
     def __exit__(self, *exc):
         self.done.record(self.stream)
         _append((self.name, "device", next(_ids), self.parent, threading.get_ident(), self.t0,
-                 _clock(), self.panel, None, None, None, self.done))
+                 _clock(), self.panel, None, None, None, self.blocks, self.batches, self.done))
         return False
 
 
-def device_span(name: str, at):
+def device_span(name: str, at, blocks=None, batches=None):
     """A device span over the work a ``with`` block enqueues on the current
     stream of ``at`` (a ``torch.device``, or a tensor on it: its ``.device``
-    is read only while the tracer is on); the block's host time on the CPU."""
+    is read only while the tracer is on); the block's host time on the CPU.
+    ``blocks`` and ``batches`` are kept with it (a batch's blocks, a stage's
+    batches)."""
     if not _on:
         return NULL
     device = at if isinstance(at, torch.device) else at.device
     return _DeviceSpan(name, torch.cuda.current_stream(device) if device.type == "cuda"
-                       else None)
+                       else None, blocks, batches)
 
 
 def device_record(name: str, done: Completion) -> None:
@@ -236,7 +259,7 @@ def device_record(name: str, done: Completion) -> None:
     parent, panel = _parent()
     t = _clock()
     _append((name, "device", next(_ids), parent, threading.get_ident(), t, t, panel, None, None,
-             None, done))
+             None, None, None, done))
 
 
 def queued(request: int):
@@ -257,4 +280,4 @@ def end_queued(tokens, panel: int) -> None:
         if tok is not None:
             request, thread, t0 = tok
             _append(("runtime.queued", "host", next(_ids), None, thread, t0, t1, panel, request,
-                     None, None, None))
+                     None, None, None, None, None))

@@ -157,7 +157,7 @@ def _points_on(hm: HMatrix, mesh: PanelMesh) -> dict:
 
 def _share(hm: HMatrix, dev, points: dict, plan: HMatrixPlan, factors, chol=None) -> _Share:
     """A :class:`_Share` on ``dev``; tensors already there are not copied."""
-    groups = hm.groups if plan is hm.plan and dev == hm.device else block_groups(plan, dev)
+    groups = hm.groups if plan is hm.plan and dev == hm.device else block_groups(plan, dev, hm.k)
     return _Share(plan, points[dev],
                   None if factors is None else {lv: (u.to(dev), v.to(dev))
                                                 for lv, (u, v) in factors.items()},

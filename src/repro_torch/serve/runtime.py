@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from .. import obs
-from .._device import resolve_device, sync_debug_window, to_host
+from .._device import release_pinned_host_memory, resolve_device, sync_debug_window, to_host
 from ..obs import Completion
 from ..parallel.hshard import pad_panel_width
 from .faults import (CircuitOpenError, FaultInjector, LaneResilience, NaNGuard, OverloadedError,
@@ -387,7 +387,7 @@ class PanelLane:
             queued.record(self.stream)
             queued.synchronize()
 
-    def launch_panel(self, chunk, pacer: LaunchPacer, on_retire=None, panel=None):
+    def launch_panel(self, chunk, pacer: LaunchPacer, on_retire=None, panel=None, tiles=None):
         """Pack ``chunk`` into the current staging buffer, pad it to its width
         bucket, launch, and resolve the chunk's futures.
 
@@ -397,11 +397,13 @@ class PanelLane:
         launch raised; the owning runtime decides between failing and
         retrying, so the lane never fails futures itself.  The upload, the
         launch and the transpose run inside :func:`strict_transfers`.
-        ``panel`` is the panel's id in the tracer's spans (``obs.new_id()``).
+        ``panel`` is the panel's id in the tracer's spans (``obs.new_id()``),
+        ``tiles`` the caller's ``obs.Tiles`` (its ``runtime.panel`` span then
+        begins where the caller's last span ended).
         """
         w = width_for(len(chunk), self.widths)
         buf = self._staging[self._buf]
-        with obs.span("runtime.panel", panel=panel, requests=len(chunk), width=w):
+        with obs.span("runtime.panel", panel=panel, requests=len(chunk), width=w, tiles=tiles):
             t0 = time.perf_counter()
             with obs.span("runtime.pack"):
                 pack_rows(self._staging_np[self._buf], [item[0] for item in chunk], w)
@@ -438,6 +440,10 @@ class PanelLane:
         for j, item in enumerate(chunk):
             item[1]._resolve(record, j)
         return w, None, dispatch_s, pack_s
+
+    def release(self):
+        """Drop the staging buffers (the lane launches no more panels)."""
+        self._staging, self._staging_np = [], []
 
     def relaunch(self, rows: torch.Tensor) -> np.ndarray:
         """Launch saved host ``(w, n)`` request rows once more through the
@@ -647,7 +653,10 @@ class PanelRuntime:
             return len(self._pending)
 
     def close(self):
-        """Drain pending requests, then stop the scheduler thread (idempotent)."""
+        """Drain pending requests, then stop the scheduler thread (idempotent).
+        Once it has stopped, the lane's pinned staging rows and the pinned
+        host blocks no result holds any longer go back to the system (at N =
+        2^24 a 64-wide panel's rows are 4 GiB)."""
         with self._cv:
             if self._closed:
                 return
@@ -661,6 +670,9 @@ class PanelRuntime:
             thread = self._thread
         if thread is not None:
             thread.join(timeout=10)
+        if thread is None or not thread.is_alive():
+            self._lane.release()
+            release_pinned_host_memory()
 
     def __enter__(self):
         return self
@@ -724,10 +736,13 @@ class PanelRuntime:
 
     def _scheduler(self):
         # traced, the loop is tiled by runtime.slot_wait, runtime.idle (each
-        # wait for work, a deadline or a backoff) and the lane's runtime.panel
+        # wait for work, a deadline or a backoff) and the lane's runtime.panel:
+        # each begins where the last ended, so the lock waits between them
+        # are in a span too
+        tiles = obs.Tiles()
         while True:
             # pacing: retire the oldest in-flight panel BEFORE taking new work
-            with obs.span("runtime.slot_wait"):
+            with obs.span("runtime.slot_wait", tiles=tiles):
                 self._pacer.wait_for_slot()
             with self._cv:
                 while True:
@@ -740,7 +755,7 @@ class PanelRuntime:
                     # sleep until the earliest of: retry-backoff expiry, the
                     # oldest request's deadline (None: until notified)
                     wakes = [t for t in (gate, self._next_deadline()) if t is not None]
-                    with obs.span("runtime.idle"):
+                    with obs.span("runtime.idle", tiles=tiles):
                         if wakes:
                             wait = min(wakes) - time.monotonic()
                             if wait > 0:
@@ -758,7 +773,7 @@ class PanelRuntime:
             w, exc, dispatch_s, pack_s = None, None, 0.0, 0.0
             try:
                 w, exc, dispatch_s, pack_s = self._lane.launch_panel(chunk, self._pacer,
-                                                                     panel=panel)
+                                                                     panel=panel, tiles=tiles)
             except Exception as err:                # the lane itself failed (device error)
                 exc = err
             with self._cv:

@@ -85,13 +85,14 @@ def test_block_groups_check_cluster_ids_once_at_build():
     """The ACA kernel reads clusters by id unchecked: a plan whose ids lie
     outside their level is refused when its block groups are built."""
     plan = build_hmatrix(np.asarray(j_halton(512, 2)), c_leaf=64, device="cpu").plan
-    block_groups(plan, "cpu")
+    block_groups(plan, "cpu", 16)
     level = min(plan.aca_levels)
     for bad in (1 << level, -1):
         blocks = plan.aca_levels[level].copy()
         blocks[0, 1] = bad
         with pytest.raises(ValueError, match="cluster ids"):
-            block_groups(replace(plan, aca_levels={**plan.aca_levels, level: blocks}), "cpu")
+            block_groups(replace(plan, aca_levels={**plan.aca_levels, level: blocks}), "cpu",
+                         16)
 
 
 def _np_problem(n, kernel, scale=1.0, c_leaf=64, k=8):

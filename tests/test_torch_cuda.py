@@ -1012,3 +1012,34 @@ def test_sharded_executors_on_card_order_after_their_shards(cuda_device):
         c_want, _ = make_solver(hm_cpu, 0.5, tol=1e-5, max_iter=300, mesh=cpu_mesh)(x)
         assert info.converged and info.iterations == int(info.iters_per_column.max())
         torch.testing.assert_close(c_host, c_want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["P", "NP"])
+@pytest.mark.parametrize("budget", [64 << 20, 1])
+def test_batched_apply_gives_the_one_batch_bits_on_card(cuda_device, mode, budget):
+    """An apply in batches of whole row clusters (every stage split at 64
+    MiB, or one row cluster a batch) against the one-batch apply, through
+    #2, #3 (NP) and #4 on the card: the same bits at R in {1, 8, 64}."""
+    from dataclasses import replace
+
+    from repro_torch.core import halton
+    from repro_torch.core import hmatrix as H
+    n = 1 << 16
+    hm = H.build_hmatrix(halton(n, 2, device=cuda_device), "gaussian", k=16, c_leaf=512,
+                         precompute=mode == "P", device=cuda_device)
+    saved = H.APPLY_BATCH_BYTES
+    H.APPLY_BATCH_BYTES = budget
+    try:
+        hb = replace(hm, groups=H.block_groups(hm.plan, cuda_device, hm.k))
+    finally:
+        H.APPLY_BATCH_BYTES = saved
+    counts = [len(g.parts()) for g in hb.groups.values()]
+    assert counts[-1] >= 3 and sum(c >= 3 for c in counts) >= 3, counts
+    assert all(g.batches == () for g in hm.groups.values())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for r in (1, 8, 64):
+        x = torch.randn(n, r, generator=gen, device=cuda_device)
+        one = H.make_apply(hm)(x)
+        assert torch.equal(H.make_apply(hb)(x), one), (mode, budget, r)
+        assert torch.equal(H.make_apply(hm)(x), one)
